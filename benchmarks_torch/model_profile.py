@@ -1,0 +1,131 @@
+"""Where granite-8b's forward and decode ticks spend their time on the card.
+
+    python3 benchmarks_torch/model_profile.py
+
+Builds granite-8b at full size (36 layers, seeded weights on the card) and
+reports, from ``torch.profiler`` traces:
+
+- one ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"``: wall s,
+  device-busy s (the sum of kernel durations), the device's idle share,
+  and device time grouped into the flash kernel, matrix products and the
+  rest;
+- 16 engine decode ticks with 4 slots and a 4096-slot cache
+  (positions near 64, as in ``chip_smoke.py``'s serve phase): host ms per
+  tick, CUDA kernels per tick, device-busy ms per tick, idle share and the
+  kernels with the most device time.
+
+Needs a CUDA device; prints the card's name and power limit.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TICKS = 16
+
+
+def _trace(fn):
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    return wall_us, kernels, by_name
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "flash kernel"
+    if "gemm" in n or "sm90" in n or "cutlass" in n or "nvjet" in n:
+        return "matrix products"
+    return "other"
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("model_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    cfg = get_config("granite-8b")
+    model = Model(cfg, impl="pallas")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 4097), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    with torch.no_grad():
+        model.loss(params, batch)                    # warm-up
+        wall_us, kernels, by_name = _trace(lambda: model.loss(params, batch))
+    busy = sum(by_name.values())
+    groups = collections.Counter()
+    for n, us in by_name.items():
+        groups[_group(n)] += us
+    fwd = dict(layers=cfg.n_layers, tokens=2 * 4096, wall_s=wall_us / 1e6,
+               device_busy_s=busy / 1e6,
+               device_idle_share=1 - busy / wall_us if kernels else None,
+               kernels=len(kernels),
+               device_s_by_group={k: v / 1e6 for k, v in groups.items()},
+               top_kernels_ms=[(n[:80], us / 1e3)
+                               for n, us in by_name.most_common(6)],
+               power=smi)
+    print(json.dumps({"forward": fwd}), flush=True)
+
+    slots, max_seq = 4, 4096
+    cache = model.init_decode_state(slots, max_seq, device=dev)
+    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=gen, device=dev)
+
+    def ticks(n, start):
+        nonlocal cache
+        for i in range(n):
+            logits, cache = model.decode(params, cache, tok, start + i)
+            logits.argmax(-1).cpu()                  # the engine's sync
+
+    with torch.no_grad():
+        ticks(4, 0)                                  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ticks(TICKS, 48)
+        host_ms = (time.perf_counter() - t) * 1e3 / TICKS
+        wall_us, kernels, by_name = _trace(lambda: ticks(TICKS, 64))
+    busy = sum(by_name.values())
+    dec = dict(slots=slots, max_seq=max_seq, ticks=TICKS,
+               host_ms_per_tick=host_ms,
+               traced_wall_ms_per_tick=wall_us / 1e3 / TICKS,
+               kernels_per_tick=len(kernels) / TICKS,
+               device_busy_ms_per_tick=busy / 1e3 / TICKS,
+               device_idle_share=1 - busy / wall_us if kernels else None,
+               top_kernels_ms_per_tick=[(n[:80], us / 1e3 / TICKS)
+                                        for n, us in by_name.most_common(6)],
+               power=smi)
+    print(json.dumps({"decode": dec}), flush=True)
+    if not busy:
+        print("model_profile: the profiler saw no CUDA kernels; device time "
+              "not measured", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,15 +20,44 @@ loudly:
    10 000 cycles with 1 000 of warm-up, in one batched call, with the
    kernel launch counts set to 0 before and read after; held against
    ``tests/torch_fixtures/fig2_reference.json`` (written by the JAX
-   package) under the same bounds.
+   package) under the same bounds;
+6. flash attention: the kernel against ``ref.attention_ref`` at the cases
+   of ``tests/test_kernels_flash.py`` (f32 2e-5, bf16 2e-2) and at the
+   shapes of the model path (granite-8b, gemma-7b's hd 256, hymba-1.5b's
+   window, Sq != Skv with ``q_offset``; bf16 1e-3 + 2^-7 |o|, and granite
+   and gemma in f32 at 2e-5); times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+   granite-8b's shape;
+7. SSD: the intra-chunk kernel against ``ref.ssd_intra_chunk_ref`` at the
+   cases of ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at
+   mamba2-1.3b's shape, where ``ops.ssd`` whole (one launch) is held
+   against its plain composition on the CPU (2e-4); times of the kernel,
+   its plain version, ``ops.ssd`` and ``ops.ssd`` composed with the plain
+   version;
+8. granite-8b at full width and 2 layers against
+   ``tests/torch_fixtures/granite8b_2l_reference.json`` (written by the JAX
+   package with the same ``carry.numpy_params`` weights): ``Model.loss``
+   with ``impl="pallas"`` (2 kernel launches), the forward's top-5 logits
+   at 8 positions, and a greedy ``Engine`` run, teacher-forced on the
+   reference's tick inputs;
+9. granite-8b at full size (36 layers, seeded weights on the card):
+   ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"`` (36 launches)
+   against ``impl="naive"``, loss and whole logit rows at 8 positions of
+   each sequence, then ``launch/serve.py``'s engine serving 8 requests on
+   4 slots (no kernel launch, as in the reference).
 
-It prints the card's name and power limit and a JSON line of kernel
+Phases 8 and 9 also plant two faults in the flash entry point (output
+zeroed; keys 128 and more back dropped) and fail unless their logit
+checks reject both.
+Each path is driven with every kernel's launch count set to 0 just before
+and read just after.  It prints the card's name and power limit and a JSON line of kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Without
 a CUDA device, or without the rest of the repository, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -40,6 +69,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12          # bf16 tensor cores, dense
 RMS_SHAPES = [                    # (shape, dtype name, tol)
     ((128, 512), "float32", 1e-5),
     ((2, 64, 1024), "float32", 1e-5),
@@ -176,6 +206,499 @@ def phase_rmsnorm(dev, rmsnorm, ops, ref) -> dict:
                 shape=head["shape"], dtype=head["dtype"], per_shape=rows)
 
 
+FLASH_CASES = [   # tests/test_kernels_flash.py
+    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name, tol)
+    (1, 128, 128, 2, 2, 64, True, 0, "float32", 2e-5),
+    (2, 256, 256, 4, 2, 64, True, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 1, 32, True, 0, "float32", 2e-5),
+    (1, 256, 256, 2, 2, 64, True, 64, "float32", 2e-5),
+    (1, 128, 128, 2, 2, 64, False, 0, "float32", 2e-5),
+    (1, 200, 200, 2, 2, 64, True, 0, "float32", 2e-5),
+    (1, 128, 128, 2, 2, 128, True, 0, "bfloat16", 2e-2),
+    (1, 64, 256, 2, 2, 64, True, 0, "float32", 2e-5),
+]
+# Shapes of the model path.  With randn inputs at S 4096 the outputs are
+# small (mean |o| ~0.02-0.04), so the test cases' bf16 2e-2 would be half an
+# output.  Both the kernel and ``attention_ref`` compute in f32 and round
+# once to bf16 at the end, so in bf16 they differ by at most one bf16 ulp
+# (<= 2^-7 |o|) plus f32 summation order (~1e-6): held to 1e-3 + 2^-7 |o|.
+# The f32 runs of the granite-8b and gemma-7b shapes (hd 128 and 256, the
+# versions the models run) are held to the test cases' 2e-5.
+FLASH_PATH = {    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name)
+    "granite-8b": (2, 4096, 4096, 32, 8, 128, True, 0, "bfloat16"),
+    "gemma-7b": (1, 4096, 4096, 16, 16, 256, True, 0, "bfloat16"),
+    "hymba-1.5b": (1, 4096, 4096, 25, 5, 64, True, 2048, "bfloat16"),
+    "granite-8b q_offset": (1, 1024, 4096, 32, 8, 128, True, 0, "bfloat16"),
+    "granite-8b f32": (2, 4096, 4096, 32, 8, 128, True, 0, "float32"),
+    "gemma-7b f32": (1, 4096, 4096, 16, 16, 256, True, 0, "float32"),
+}
+FLASH_PATH_TOL = {"bfloat16": (1e-3, 2.0 ** -7), "float32": (2e-5, 2e-5)}
+SSD_CASES = [     # tests/test_kernels_ssd.py: (BH, c, Q, P, N, dtype, tol)
+    (2, 2, 16, 8, 16, "float32", 1e-4),
+    (4, 4, 32, 16, 32, "float32", 1e-4),
+    (1, 1, 64, 64, 128, "float32", 1e-4),
+    (2, 2, 16, 8, 16, "bfloat16", 5e-2),
+]
+MAMBA = dict(b=1, l=4096, h=64, p=64, n=128, chunk=128)   # mamba2-1.3b
+GRANITE_LOSS_RTOL = 1e-3     # 2 layers, port on the card vs JAX on the CPU
+FULL_LOSS_RTOL = 1e-3        # pallas (f32 softmax) vs naive (bf16 p)
+# Logits, relative to the largest reference logit.  The loss of random
+# weights sits near ln(vocab) whatever attention does, so the forward is
+# also held by its logits, which attention determines.  2 layers (port vs
+# JAX, top-5 at the fixture's positions, and decode): 2^-5, eight bf16 ulps
+# at the top binade, for flipped roundings of bf16 activations.
+LOGIT_REL = 2.0 ** -5
+# 36 layers, ``impl="pallas"`` vs ``"naive"`` (bf16 scores and p) over whole
+# logit rows: the flips compound over the layers; 2^-4.
+FULL_LOGIT_REL = 2.0 ** -4
+POSITIONS_FULL = [0, 1, 63, 64, 2047, 2048, 4000, 4095]
+
+
+@contextlib.contextmanager
+def swapped(obj, name: str, value):
+    """``obj.name = value`` inside the block: a kernel's plain version in
+    its caller, or a fault planted to show that a check sees it."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def logits_at(model, params, tokens, positions):
+    """``lm_loss``'s logits at ``positions`` of every row: f32 [B*P, V]."""
+    from repro_torch.models import transformer as tf
+    h = tf.lm_hidden(model.cfg, params, tokens, impl=model.impl)
+    lg = tf.lm_logits(model.cfg, params, h[:, positions]).float()
+    return lg.reshape(-1, lg.shape[-1])
+
+
+def planted_faults(ops, model, params, batch, positions, err_of,
+                   limit: float) -> dict:
+    """Run the forward again with a fault planted in ``ops.flash_attention``
+    (its output zeroed; the keys 128 and more behind each query dropped, as
+    a kernel that lost tiles would) and require the logit check
+    ``err_of(logits) <= limit`` to reject each.  Returns each fault's
+    logit error and loss."""
+    import torch
+    real = ops.flash_attention
+    fakes = {
+        "output zeroed": lambda q, k, v, **kw: torch.zeros_like(q),
+        "keys 128 back dropped": lambda q, k, v, **kw: real(
+            q, k, v, causal=True, window=128),
+    }
+    out = {}
+    for name, fake in fakes.items():
+        with swapped(ops, "flash_attention", fake), torch.no_grad():
+            err = err_of(logits_at(model, params, batch["tokens"],
+                                   positions))
+            loss = float(model.loss(params, batch))
+        if not err > limit:
+            raise AssertionError(f"fault '{name}' passes the logit check: "
+                                 f"{err} <= {limit}")
+        out[name] = dict(logit_err=err, loss=loss)
+    return out
+
+
+def counts(kmods) -> dict:
+    return {k: m.launches for k, m in kmods.items()}
+
+
+def zero(kmods) -> None:
+    import torch
+    torch.cuda.synchronize()
+    for m in kmods.values():
+        m.launches = 0
+
+
+def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
+    """Unmasked (query, key) pairs: the work the masks leave."""
+    import numpy as np
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def bound(nbytes: float, flops: float, rate: float) -> tuple:
+    tb, tf = nbytes / H100_BYTES_PER_S, flops / rate
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def phase_flash(dev, flash_attention, ref) -> dict:
+    import torch
+    import torch.nn.functional as F
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(B, Sq, Skv, H, Hkv, hd, dtype):
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev  # noqa
+                                    ).to(dt[dtype])
+        return mk(B * H, Sq, hd), mk(B * Hkv, Skv, hd), mk(B * Hkv, Skv, hd)
+
+    cases = [(f"test {i}", c[:-1], (c[-1], c[-1]))
+             for i, c in enumerate(FLASH_CASES)] \
+        + [(tag, c, FLASH_PATH_TOL[c[-1]]) for tag, c in FLASH_PATH.items()]
+    rows = []
+    for tag, (B, Sq, Skv, H, Hkv, hd, causal, window, dtype), (atol, rtol) \
+            in cases:
+        q, k, v = qkv(B, Sq, Skv, H, Hkv, hd, dtype)
+        q_offset = Skv - Sq
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        if not bool((d <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"flash {tag}: max abs err {err} beyond "
+                                 f"{atol} + {rtol} |want|")
+        rec = dict(case=tag, B=B, Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, hd=hd,
+                   causal=causal, window=window, q_offset=q_offset,
+                   dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol,
+                   mean_abs_want=float(want.float().abs().mean()))
+        if tag in FLASH_PATH and dtype == "bfloat16":
+            pairs = attention_pairs(Sq, Skv, causal, window, q_offset)
+            flops = 4.0 * hd * B * H * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops,
+                                                     H100_BF16_FLOPS)
+            rec["gflop"] = flops / 1e9
+            rec["ms"] = time_ms(lambda: flash_attention.flash_attention_bhsd(
+                q, k, v, **kw), iters=5)
+            if tag == "granite-8b":
+                rec["plain_ms"] = time_ms(lambda: ref.attention_ref(
+                    q, k, v, **kw), iters=3)
+                q4, k4, v4 = (t.view(B, -1, t.shape[1], hd)
+                              for t in (q, k, v))
+                rec["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=causal, enable_gqa=True),
+                    iters=5)
+            rec["tflops"] = flops / rec["ms"] / 1e9
+        rows.append(rec)
+        say("flash", json.dumps(rec))
+        del q, k, v, got, want, d
+    head = next(r for r in rows if r["case"] == "granite-8b")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:71",
+                launches=None, max_abs_err=head["max_abs_err"],
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                shape=[2, 4096, 32, 8, 128], dtype="bfloat16",
+                per_case=rows)
+
+
+def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
+    import torch
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
+
+    def cell_inputs(BH, c, Q, P, N, dtype):
+        return (rnd(BH, c, Q, P).to(dt[dtype]),
+                torch.nn.functional.softplus(rnd(BH, c, Q)),
+                -torch.exp(0.3 * rnd(BH)),
+                rnd(BH, c, Q, N).to(dt[dtype]),
+                rnd(BH, c, Q, N).to(dt[dtype]))
+
+    def check(tag, args, tol, scaled=False):
+        """Elementwise ``tol + tol * |want|``; ``scaled``: ``tol`` of each
+        output's largest entry (large cells: the f32 error of sums of
+        Q * N products grows with the outputs' size, not each entry's)."""
+        got = ssd_scan.ssd_intra_chunk(*args)
+        want = ref.ssd_intra_chunk_ref(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            d = (g - w).abs()
+            err = max(err, float(d.max()))
+            lim = tol * w.abs().max() if scaled else tol + tol * w.abs()
+            if not bool((d <= lim).all()):
+                raise AssertionError(f"ssd {tag}: max abs err "
+                                     f"{float(d.max())} beyond tol {tol}")
+        return err
+
+    for i, (BH, c, Q, P, N, dtype, tol) in enumerate(SSD_CASES):
+        err = check(f"test {i}", cell_inputs(BH, c, Q, P, N, dtype), tol)
+        say("ssd", json.dumps(dict(case=f"test {i}", BH=BH, c=c, Q=Q, P=P,
+                                   N=N, dtype=dtype, max_abs_err=err,
+                                   tol=tol)))
+
+    m = MAMBA
+    b, l, h, p, n, Q = m["b"], m["l"], m["h"], m["p"], m["n"], m["chunk"]
+    x = 0.5 * rnd(b, l, h, p)
+    dtv = torch.nn.functional.softplus(rnd(b, l, h))
+    A = -torch.exp(0.2 * rnd(h))
+    B = 0.3 * rnd(b, l, n)
+    C = 0.3 * rnd(b, l, n)
+    zero(kmods)
+    y, st = ops.ssd(x, dtv, A, B, C, chunk=Q)
+    torch.cuda.synchronize()
+    path = counts(kmods)
+    if path["ssd_scan"] != 1 or path["flash_attention"] or path["rmsnorm"]:
+        raise AssertionError(f"ops.ssd launched {path}, want one ssd launch")
+    # ops.ssd rounds the chunk states to bf16 (as the reference does), so
+    # f32 differences of the two intra-chunk versions can flip a rounding:
+    # one bf16 ulp of a state entry, carried on.  Held to 2^-7 of each
+    # output's largest entry.
+    y_c, st_c = ops.ssd(*(t.cpu() for t in (x, dtv, A, B, C)), chunk=Q)
+    errs = {}
+    for tag, g, w in (("y", y.cpu(), y_c), ("state", st.cpu(), st_c)):
+        errs[tag] = (float((g - w).abs().max()), float(w.abs().max()))
+        if errs[tag][0] > 2.0 ** -7 * errs[tag][1]:
+            raise AssertionError(f"ops.ssd on the card vs its plain "
+                                 f"composition: (max err, max |ref|) {errs}")
+    say("ssd", f"ops.ssd at mamba2-1.3b's shape {m}: {path['ssd_scan']} "
+        f"launch; vs plain composition (max abs err, max |ref|) {errs}")
+
+    # the kernel alone at the cell shape ops.ssd gave it
+    c = l // Q
+    args = cell_inputs(b * h, c, Q, p, n, "float32")
+    err = check("mamba2-1.3b cell", args, 1e-4, scaled=True)
+    cells = b * h * c
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * cells * (tri * n + tri * p + Q * p * n)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + 4 * cells * (Q * p + p * n + 1)
+    bound_ms, bound_by = bound(nbytes, flops, H100_F32_FLOPS)
+    rec = dict(case="mamba2-1.3b cell", BH=b * h, c=c, Q=Q, P=p, N=n,
+               dtype="float32", max_abs_err=err, bound_ms=bound_ms,
+               bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+               ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*args)),
+               plain_ms=time_ms(lambda: ref.ssd_intra_chunk_ref(*args),
+                                iters=5),
+               ops_ssd_ms=time_ms(lambda: ops.ssd(x, dtv, A, B, C, chunk=Q),
+                                  iters=5))
+    # ``ops.ssd`` composed with the plain intra-chunk block, on the card
+    with swapped(ssd_scan, "ssd_intra_chunk", ref.ssd_intra_chunk_ref):
+        rec["ops_ssd_plain_ms"] = time_ms(
+            lambda: ops.ssd(x, dtv, A, B, C, chunk=Q), iters=5)
+    say("ssd", json.dumps(rec))
+    return dict(name="ssd_intra_chunk", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:56",
+                launches=path["ssd_scan"], max_abs_err=err, ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                shape=[b * h, c, Q, p, n], dtype="float32")
+
+
+def phase_granite_reference(dev, kmods) -> dict:
+    """granite-8b, full width, 2 layers, vs the JAX package's fixture."""
+    import numpy as np
+    import torch
+    from repro_torch import carry
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, Request
+
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "granite8b_2l_reference.json").read_text())
+    cfg = get_config(fx["arch"]).scaled(n_layers=fx["n_layers"])
+    params = carry.params_from_jax(
+        carry.numpy_params(cfg, fx["weights_seed"]), device=dev)
+    model = Model(cfg, impl="pallas")
+    lb = fx["loss_batch"]
+    batch = {k: torch.tensor(lb[k], dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    zero(kmods)
+    with torch.no_grad():
+        loss = float(model.loss(params, batch))
+    path = counts(kmods)
+    if path["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"Model.loss launched {path}, want "
+                             f"{cfg.n_layers} flash launches")
+    if abs(loss - fx["loss"]) > GRANITE_LOSS_RTOL * abs(fx["loss"]):
+        raise AssertionError(f"2-layer loss {loss} vs reference "
+                             f"{fx['loss']} (rel tol {GRANITE_LOSS_RTOL})")
+
+    # the forward's logits (the kernel's output through both layers) at the
+    # fixture's positions: top-5 values, relative to each position's largest
+    f = fx["forward"]
+    fids, fvals = np.array(f["top_ids"]), np.array(f["top_vals"])
+
+    def fixture_err(lg) -> float:
+        got = np.take_along_axis(lg.cpu().numpy(), fids, 1)
+        return float((np.abs(got - fvals).max(1)
+                      / np.abs(fvals).max(1)).max())
+
+    with torch.no_grad():
+        lg = logits_at(model, params, batch["tokens"], f["positions"])
+    fwd_err = fixture_err(lg)
+    top1 = lg.argmax(1).tolist()
+    if fwd_err > LOGIT_REL or any(a not in ids
+                                  for a, ids in zip(top1, fids.tolist())):
+        raise AssertionError(f"2-layer forward logits vs reference: rel err "
+                             f"{fwd_err} (tol {LOGIT_REL}), argmax {top1}")
+    faults = planted_faults(ops, model, params, batch, f["positions"],
+                            fixture_err, LOGIT_REL)
+
+    g = fx["greedy"]
+    # teacher-forced on the reference's tick inputs
+    cache = model.init_decode_state(g["slots"], g["max_seq"], device=dev)
+    worst, ties = 0.0, {}
+    with torch.no_grad():
+        for t, tick in enumerate(g["ticks"]):
+            toks = torch.tensor(tick["tokens"], dtype=torch.int32,
+                                device=dev)[:, None]
+            logits, cache = model.decode(params, cache, toks,
+                                         tick["cache_len"])
+            lg = logits.cpu().numpy()
+            for s in range(g["slots"]):
+                ids = np.array(tick["top_ids"][s])
+                vals = np.array(tick["top_vals"][s])
+                tol = LOGIT_REL * np.abs(vals).max()
+                dev_ = np.abs(lg[s, ids] - vals).max()
+                worst = max(worst, float(dev_ / np.abs(vals).max()))
+                if dev_ > tol:
+                    raise AssertionError(f"tick {t} slot {s}: top-5 logits "
+                                         f"{lg[s, ids]} vs {vals}")
+                # the greedy token may differ only where the reference's
+                # top-1 lead over another top-5 token is within the two
+                # tokens' deviations (bf16 ties are common)
+                d = np.abs(lg[s, ids] - vals)
+                flip = bool(any(vals[0] - vals[k] <= d[0] + d[k]
+                                for k in range(1, len(ids))))
+                top = int(lg[s].argmax())
+                if top != ids[0] and not (flip and top in ids):
+                    raise AssertionError(f"tick {t} slot {s}: port argmax "
+                                         f"{top} vs reference {ids[0]}")
+                ties[(t, s)] = flip
+    # free-running greedy engine: equal tokens up to the first near tie
+    eng = Engine(model, params, slots=g["slots"], max_seq=g["max_seq"])
+    reqs = [Request(rid=i, prompt=pr, max_new=g["max_new"])
+            for i, pr in enumerate(g["prompts"])]
+    assert len(reqs) == g["slots"]          # one request per slot, no refill
+    for r in reqs:
+        eng.submit(r)
+    zero(kmods)
+    eng.run(max_ticks=100)
+    serve_path = counts(kmods)
+    compared = 0
+    for s, (r, want) in enumerate(zip(reqs, g["outputs"])):
+        if not r.done or len(r.out) != len(want):
+            raise AssertionError(f"request {s} unfinished: {r.out}")
+        for j, (a, b_) in enumerate(zip(r.out, want)):
+            if ties[(len(r.prompt) - 1 + j, s)]:
+                break                         # may flip: stop comparing
+            if a != b_:
+                raise AssertionError(f"request {s} token {j}: {r.out} vs "
+                                     f"{want}")
+            compared += 1
+    res = dict(loss=loss, loss_ref=fx["loss"],
+               loss_rel_err=abs(loss - fx["loss"]) / abs(fx["loss"]),
+               flash_launches_per_loss=path["flash_attention"],
+               forward_top5_rel_err=fwd_err, planted_faults=faults,
+               top5_worst_rel_err=worst, greedy_tokens_compared=compared,
+               greedy_tokens_total=sum(len(o) for o in g["outputs"]),
+               possible_flips=sum(ties.values()), outputs=[r.out for r in reqs],
+               engine_launches=serve_path)
+    say("granite-2l", json.dumps(res))
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_granite_full(dev, kmods, smi) -> dict:
+    """granite-8b at full size: the forward with the kernel, and serving."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve.sampler import SamplerConfig
+
+    cfg = get_config("granite-8b")
+    model = Model(cfg, impl="pallas")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    n_params = sum(p.numel() for p in _tensors(params))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S = 2, 4096
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        model.loss(params, {k: v[:, :128] for k, v in batch.items()})
+        zero(kmods)
+        t = time.perf_counter()
+        loss_p = float(model.loss(params, batch))
+        t_fwd = time.perf_counter() - t
+        path = counts(kmods)
+        if path["flash_attention"] != cfg.n_layers or path["ssd_scan"] \
+                or path["rmsnorm"]:
+            raise AssertionError(f"full forward launched {path}, want "
+                                 f"{cfg.n_layers} flash launches")
+        peak_fwd = torch.cuda.max_memory_allocated(dev)
+        naive = Model(cfg, impl="naive")
+        t = time.perf_counter()
+        loss_n = float(naive.loss(params, batch))
+        t_naive = time.perf_counter() - t
+        lg_p = logits_at(model, params, batch["tokens"], POSITIONS_FULL)
+        lg_n = logits_at(naive, params, batch["tokens"], POSITIONS_FULL)
+    if not (abs(loss_p - loss_n) <= FULL_LOSS_RTOL * abs(loss_n)
+            and math.isfinite(loss_p)):
+        raise AssertionError(f"36-layer loss: pallas {loss_p} vs naive "
+                             f"{loss_n} (rel tol {FULL_LOSS_RTOL})")
+
+    def naive_err(lg) -> float:
+        return float((lg - lg_n).abs().max() / lg_n.abs().max())
+
+    logit_err = naive_err(lg_p)
+    if not logit_err <= FULL_LOGIT_REL:
+        raise AssertionError(f"36-layer logits: pallas vs naive rel err "
+                             f"{logit_err} (tol {FULL_LOGIT_REL})")
+    faults = planted_faults(ops, model, params, batch, POSITIONS_FULL,
+                            naive_err, FULL_LOGIT_REL)
+    fwd = dict(n_params=n_params, init_s=t_init, loss_pallas=loss_p,
+               loss_naive=loss_n, rel_diff=abs(loss_p - loss_n) / loss_n,
+               logit_rel_err=logit_err, planted_faults=faults,
+               forward_s=t_fwd, forward_tokens_per_s=B * S / t_fwd,
+               naive_forward_s=t_naive, flash_launches=path,
+               peak_gib=peak_fwd / 2**30, power=smi)
+    say("granite-full", json.dumps(fwd))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero(kmods)
+    res = serve.serve_requests(
+        model, params, requests=8, slots=4, max_seq=4096, max_new=32,
+        sampler=SamplerConfig(temperature=0.8, top_k=50),
+        prompt_lens=(16, 65))
+    serve_path = counts(kmods)
+    if res["done"] != 8 or any(len(r.out) != 32 for r in res["requests"]):
+        raise AssertionError(f"serve: {res['done']} of 8 requests done")
+    if any(serve_path.values()):
+        raise AssertionError(f"serve launched kernels: {serve_path}")
+    out = dict(requests=8, done=res["done"], tokens=res["tokens"],
+               prompt_tokens=res["prompt_tokens"], ticks=res["ticks"],
+               wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"],
+               ms_per_tick=1e3 * res["wall_s"] / res["ticks"],
+               kernel_launches=serve_path,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               power=nvidia_smi())
+    say("granite-serve", json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    return dict(forward=fwd, serve=out)
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -184,7 +707,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.constants import Fabric, SimParams
     from repro_torch.core.sweep import SweepPoint, run_sweep_batched
-    from repro_torch.kernels import _build, ops, ref, rmsnorm
+    from repro_torch.kernels import (_build, flash_attention, ops, ref,
+                                     rmsnorm, ssd_scan)
+    kmods = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+             "ssd_scan": ssd_scan}
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -222,13 +748,12 @@ def main() -> int:
     sim_p = SimParams(**fx["sim"])
     fabs = [Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS]
     pts = [SweepPoint(4, 4, f, load=1.0, p_mem=0.2, sim=sim_p) for f in fabs]
-    rmsnorm.launches = 0
-    torch.cuda.synchronize()
+    zero(kmods)
     t = time.perf_counter()
     ms = run_sweep_batched(pts, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    sim_launches = {"rmsnorm": rmsnorm.launches}
+    sim_launches = counts(kmods)
     res = dict(zip(fabs, ms))
     for f in fabs:
         check_metrics(f"fig2 {f.name}", res[f], fx["points"][f.name]["metrics"])
@@ -251,7 +776,14 @@ def main() -> int:
     if any(sim_launches.values()):
         raise AssertionError(f"unexpected kernel launches: {sim_launches}")
 
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    flash = phase_flash(dev, flash_attention, ref)
+    ssd = phase_ssd(dev, ssd_scan, ops, ref, kmods)
+    phase_granite_reference(dev, kmods)
+    full = phase_granite_full(dev, kmods, smi)
+    flash["launches"] = full["forward"]["flash_launches"]["flash_attention"]
+
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"kernels": [kern, flash, ssd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,11 @@ port's have the same leaf names, shapes and dtypes.  Given as
 jax_state._asdict().items()}``), they become the port's tuples on a
 device, and back.  This is the simulator's counterpart of loading
 weights: a test can start both engines from one state.
+
+For the model side, ``params_from_jax`` turns the reference's parameter
+tree (leaves as numpy arrays) into the port's, and ``numpy_params`` makes
+a parameter tree from a seed with the reference's distributions, so that
+both packages can be fed the same weights without JAX on the card.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.simulator import SimState, SimStatic
+from repro_torch.models import transformer as tf
 
 
 def _tensors(cls, fields: dict, device):
@@ -40,3 +46,50 @@ def state_from_numpy(fields: dict, device=None) -> SimState:
 def state_to_numpy(st) -> dict:
     """A port ``SimState`` (or ``SimStatic``) -> ``{name: np.ndarray}``."""
     return {k: v.detach().cpu().numpy() for k, v in st._asdict().items()}
+
+
+def _leaf_to_torch(a: np.ndarray, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":              # ml_dtypes' bf16, from JAX
+        t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev, torch.bfloat16)
+
+
+def params_from_jax(tree: dict, device=None) -> dict:
+    """The reference's parameter tree (a nested dict whose leaves are numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the port's bf16
+    parameters (the reference's ``param_dtype``) on ``device``.  bf16
+    leaves keep their bits; other leaves are rounded to bf16."""
+    dev = _device.resolve(device)
+    return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
+            else _leaf_to_torch(v, dev) for k, v in tree.items()}
+
+
+def round_bf16(a: np.ndarray) -> np.ndarray:
+    """f32 values rounded to the nearest bf16 value (ties to even), kept as
+    f32 (finite inputs; rounds in place when given an f32 array)."""
+    b = np.asarray(a, dtype=np.float32).view(np.uint32)
+    b += np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))
+    b &= np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """A parameter tree for ``cfg`` from ``np.random.default_rng(seed)``
+    with the distributions of the reference's ``init_params``: norm
+    weights 1, biases 0, matrices N(0, 1) * fan_in^-0.5 in f32, rounded to
+    bf16 (ties to even).  Leaves are f32 arrays whose values are bf16
+    values, so either package casts them to bf16 exactly; the leaves are
+    drawn in JAX's flattening order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, shape in tf.leaves(tf.param_shapes(cfg)):
+        kind, val = tf.init_rule(name, shape)
+        if kind == "fill":
+            out.append((name, np.full(shape, val, np.float32)))
+        else:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(val)
+            out.append((name, round_bf16(a)))
+    return tf.unflatten(out)

@@ -20,7 +20,9 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = {"rmsnorm": "rmsnorm.cu"}
+SOURCES = {"rmsnorm": "rmsnorm.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -36,3 +38,66 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: [..., d] -> fused RMSNorm * w (autograd: analytic backward)."""
     return _RMSNorm.apply(x, w, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd] -> [B, Sq, H, hd]."""
+    B, Sq, H, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    qf = q.transpose(1, 2).reshape(B * H, Sq, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(B * Hkv, Skv, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(B * Hkv, Skv, hd).contiguous()
+    out = _fa.flash_attention_bhsd(qf, kf, vf, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return out.reshape(B, H, Sq, hd).transpose(1, 2)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int = 128):
+    """Full SSD: the intra-chunk kernel plus the inter-chunk recurrence.
+
+    x: [b, l, h, p]; dt: [b, l, h]; A: [h]; B, C: [b, l, n].
+    Returns (y [b, l, h, p] in x's dtype, final_state [b, h, p, n] f32).
+    The recurrence is a loop over chunks in torch, as the reference's is a
+    ``lax.scan``: chunk states carried in bf16, accumulated in f32.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, l)
+    if l % chunk:
+        raise ValueError(f"ssd: length {l} is not a multiple of the chunk "
+                         f"{chunk}")
+    c = l // chunk
+
+    # layout for the kernel: one cell per (batch*head, chunk)
+    xk = x.permute(0, 2, 1, 3).reshape(b * h, c, chunk, p).contiguous()
+    dtk = dt.permute(0, 2, 1).reshape(b * h, c, chunk).contiguous()
+    Bk = B.reshape(b, 1, c, chunk, n).expand(b, h, c, chunk, n) \
+        .reshape(b * h, c, chunk, n).contiguous()
+    Ck = C.reshape(b, 1, c, chunk, n).expand(b, h, c, chunk, n) \
+        .reshape(b * h, c, chunk, n).contiguous()
+    Ak = A[None, :].expand(b, h).reshape(b * h).contiguous()
+
+    y_diag, states, decay = _ssd.ssd_intra_chunk(xk, dtk, Ak, Bk, Ck)
+
+    # inter-chunk recurrence: the state carried into each chunk
+    states = states.to(torch.bfloat16).float()
+    carry = torch.zeros((b * h, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for i in range(c):
+        prev.append(carry)
+        carry = carry * decay[:, i, None, None] + states[:, i]
+    prev = torch.stack(prev, dim=1).to(torch.bfloat16)     # [bh, c, p, n]
+
+    # off-diagonal: carried-in state contribution; JAX promotes the mixed
+    # dtypes of this einsum, torch needs them cast to the promoted type
+    a = dtk * Ak[:, None, None]
+    state_decay = torch.exp(torch.cumsum(a, dim=-1))       # [bh, c, Q]
+    dtype = torch.promote_types(torch.promote_types(Ck.dtype, prev.dtype),
+                                state_decay.dtype)
+    y_off = torch.einsum("bcqn,bcpn,bcq->bcqp", Ck.to(dtype),
+                         prev.to(dtype), state_decay.to(dtype))
+    y = (y_diag + y_off).reshape(b, h, l, p).permute(0, 2, 1, 3)
+    return y.to(x.dtype), carry.reshape(b, h, p, n)

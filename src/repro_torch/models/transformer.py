@@ -1,0 +1,234 @@
+"""Model assembly for the dense decoder-only LMs, in plain torch.
+
+Port of ``repro/models/transformer.py`` for the ``dense`` family: the
+parameters keep the reference's tree (a nested dict with the layers
+stacked on a leading axis), and a Python loop over the layers takes the
+place of ``lax.scan``.  The other families raise ``NotImplementedError``
+naming their ROADMAP item.  No rematerialisation: the forward needs none,
+and training is a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (chunked_xent, glu_mlp, mlp_shapes,
+                                       norm, norm_shapes)
+
+_NOT_PORTED = {
+    "moe": "ROADMAP A9: models/moe.py",
+    "ssm": "ROADMAP A9: models/ssm.py",
+    "hybrid": "ROADMAP A9: models/ssm.py and the hybrid layer",
+    "encdec": "ROADMAP A9: the encoder-decoder family",
+    "vlm": "ROADMAP A9: the VLM family",
+}
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"({_NOT_PORTED.get(cfg.family, 'ROADMAP A9')})")
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+def _stacked(tree: dict, n: int) -> dict:
+    return {k: _stacked(v, n) if isinstance(v, dict) else (n,) + v
+            for k, v in tree.items()}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree as shapes (the reference's ``param_specs``)."""
+    require_dense(cfg)
+    d = cfg.d_model
+    layer = {"ln1": norm_shapes(d, cfg.norm),
+             "attn": attn_mod.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.hd),
+             "ffn": mlp_shapes(d, cfg.d_ff, cfg.mlp_gated),
+             "ln2": norm_shapes(d, cfg.norm)}
+    shapes = {"embed": (cfg.vocab_padded, d),
+              "ln_f": norm_shapes(d, cfg.norm),
+              "layers": _stacked(layer, cfg.n_layers)}
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (cfg.vocab_padded, d)
+    return shapes
+
+
+def leaves(tree: dict, path: str = ""):
+    """``(keystr, leaf)`` pairs in JAX's flattening order (sorted keys);
+    ``keystr`` is ``jax.tree_util.keystr``'s form, e.g. ``['ln_f']['w']``."""
+    for k in sorted(tree):
+        p = f"{path}[{k!r}]"
+        if isinstance(tree[k], dict):
+            yield from leaves(tree[k], p)
+        else:
+            yield p, tree[k]
+
+
+def unflatten(pairs) -> dict:
+    """Inverse of ``leaves``: ``(keystr, leaf)`` pairs -> nested dict."""
+    out: dict = {}
+    for path, leaf in pairs:
+        keys = [k.strip("'\"") for k in path[1:-1].split("][")]
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return out
+
+
+def init_rule(name: str, shape: tuple):
+    """The reference's ``init_params`` rule for one leaf: ``("fill", v)`` or
+    ``("normal", std)`` (dense leaves only: no SSM parameters)."""
+    if "'w'" in name or name.endswith("'b']"):
+        return "fill", (0.0 if name.endswith("'b']") else 1.0)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return "normal", fan_in ** -0.5
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device=None) -> dict:
+    """Random init with the reference's distributions: norm weights 1,
+    biases 0, every matrix N(0, 1) * fan_in^-0.5 drawn in f32 and cast.
+    ``generator`` must live on ``device``; the numbers differ from JAX's
+    (see ``carry.numpy_params`` for weights both packages can share)."""
+    dev = _device.resolve(device)
+    out = []
+    for name, shape in leaves(param_shapes(cfg)):
+        kind, val = init_rule(name, shape)
+        if kind == "fill":
+            t = torch.full(shape, val, dtype=dtype, device=dev)
+        else:
+            t = (torch.randn(shape, generator=generator, dtype=torch.float32,
+                             device=dev) * val).to(dtype)
+        out.append((name, t))
+    return unflatten(out)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i`` of the stacked layer tree (views, no copy)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in params.items()}
+
+
+def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``emb[tokens]`` with ``jnp``'s index rule: a negative id wraps once,
+    then every id is clamped into range."""
+    n = emb.shape[0]
+    t = tokens.long()
+    return emb[torch.where(t < 0, t + n, t).clamp(0, n - 1)]
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+    h = norm(x, lp["ln1"], cfg.norm)
+    a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
+                              causal=causal, impl=impl)
+    x = x + a
+    h = norm(x, lp["ln2"], cfg.norm)
+    return x + glu_mlp(h, lp["ffn"], cfg.act)
+
+
+def backbone(cfg: ModelConfig, params, x, *, positions, causal=True,
+             impl="blockwise"):
+    """Run the stacked layers over x: [B, S, d]."""
+    for i in range(cfg.n_layers):
+        x = _layer_body(cfg, x, layer_params(params["layers"], i),
+                        positions=positions, causal=causal, impl=impl)
+    return x
+
+
+def _logits(cfg: ModelConfig, h: torch.Tensor, e: torch.Tensor
+            ) -> torch.Tensor:
+    logits = h @ e.T                              # einsum bsd,vd->bsv
+    if cfg.vocab_padded != cfg.vocab:             # mask padded vocab rows
+        pad = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
+        logits = torch.where(pad, logits, -1e30)
+    return logits
+
+
+def lm_hidden(cfg: ModelConfig, params, tokens, *,
+              impl="blockwise") -> torch.Tensor:
+    """The final-normed hidden states [B, S, d] whose logits ``lm_loss``
+    scores."""
+    require_dense(cfg)
+    x = embed(params["embed"], tokens).to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = backbone(cfg, params, x, positions=positions, causal=True, impl=impl)
+    return norm(x, params["ln_f"], cfg.norm)
+
+
+def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    """Logits of hidden states h [..., d] (bf16, as in ``lm_loss``)."""
+    return _logits(cfg, h, params.get("unembed", params["embed"]))
+
+
+def lm_loss(cfg: ModelConfig, params, batch, *, impl="blockwise",
+            xent_chunk=512) -> torch.Tensor:
+    """Causal LM loss.  batch: tokens/labels [B, S]."""
+    x = lm_hidden(cfg, params, batch["tokens"], impl=impl)
+    unemb = params.get("unembed", params["embed"])
+    return chunked_xent(lambda h, e: _logits(cfg, h, e), x, unemb,
+                        batch["labels"], chunk=xent_chunk)
+
+
+# --------------------------------------------------------------------------
+# decode (serve_step)
+# --------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
+                      dtype=torch.bfloat16, device=None) -> dict:
+    """Per-layer stacked KV caches [L, batch, S, Hkv, hd], zeros; a
+    sliding-window arch keeps only ``window`` slots (a ring buffer)."""
+    require_dense(cfg)
+    dev = _device.resolve(device)
+    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    kv = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.hd)
+    return {k: torch.zeros(kv, dtype=dtype, device=dev) for k in ("k", "v")}
+
+
+def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
+                cache_len: int):
+    """One decode step: tokens [B, 1] at position ``cache_len``.
+
+    Sliding-window archs index the cache modulo the window (ring buffer).
+    Returns (logits [B, V] f32, cache); the cache is updated in place (see
+    ``attention.attention``).
+    """
+    require_dense(cfg)
+    emb = params["embed"]
+    x = embed(emb, tokens).to(torch.bfloat16)               # [B, 1, d]
+    cache_len = int(cache_len)
+    positions = torch.full((1,), cache_len, dtype=torch.int32,
+                           device=x.device)
+    window = cfg.sliding_window
+    if window:
+        slot = cache_len % window                  # ring-buffer slot
+        valid_len = min(cache_len + 1, window)
+    else:
+        slot = cache_len
+        valid_len = cache_len + 1
+
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = norm(x, lp["ln1"], cfg.norm)
+        a, _ = attn_mod.attention(
+            h, lp["attn"], cfg, positions=positions,
+            kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
+            cache_slot=slot, valid_len=valid_len)
+        x = x + a
+        h = norm(x, lp["ln2"], cfg.norm)
+        x = x + glu_mlp(h, lp["ffn"], cfg.act)
+    x = norm(x, params["ln_f"], cfg.norm)
+    unemb = params.get("unembed", emb)
+    logits = (x @ unemb.T)[:, 0, :cfg.vocab]
+    return logits.float(), cache
+

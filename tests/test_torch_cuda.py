@@ -7,7 +7,15 @@ without one).  Torch only, so they also run where JAX is not installed:
   shapes and tolerances (f32 1e-5, bf16 2e-2), one launch per call;
 - the wrapper refuses what the kernel does not take (no fallback);
 - the simulator on the card equals the simulator on the CPU, every
-  ``SimState`` leaf exactly, for a single point and a mixed-budget batch.
+  ``SimState`` leaf exactly, for a single point and a mixed-budget batch;
+- the flash-attention kernel against its plain version at the flash test's
+  cases and tolerances (f32 2e-5, bf16 2e-2) plus head dims 16, 80 and 256,
+  one launch per call, and a dense model's ``impl="pallas"`` loss and
+  logits against ``impl="naive"`` with one launch per layer;
+- the SSD intra-chunk kernel against its plain version at the SSD test's
+  cases and tolerances (f32 1e-4, bf16 5e-2) plus mamba2-1.3b's cell
+  shape, one launch per call, and ``ops.ssd`` on the card against the CPU;
+- both wrappers refuse what their kernels do not take.
 """
 import numpy as np
 import pytest
@@ -17,8 +25,10 @@ torch = pytest.importorskip("torch")
 from repro_torch import carry  # noqa: E402
 from repro_torch.core import simulator, sweep  # noqa: E402
 from repro_torch.core.constants import Fabric, MacMode, SimParams  # noqa: E402
-from repro_torch.kernels import ops, rmsnorm  # noqa: E402
-from repro_torch.kernels.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, rmsnorm  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, rmsnorm_ref,  # noqa: E402
+                                     ssd_intra_chunk_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +113,172 @@ def test_mixed_batch_on_card_equals_cpu(cuda):
         [_packed(dev, f, l, c, **kw) for f, l, c, kw in pts]))
         for dev in (cuda, "cpu")]
     _assert_same(outs[1], outs[0])
+
+
+FLASH_CASES = [
+    # (BH, BHkv, Sq, Skv, hd, causal, window, q_offset, dtype, tol)
+    (2, 2, 128, 128, 64, True, 0, 0, torch.float32, 2e-5),
+    (8, 4, 256, 256, 64, True, 0, 0, torch.float32, 2e-5),
+    (4, 1, 128, 128, 32, True, 0, 0, torch.float32, 2e-5),      # MQA
+    (2, 2, 256, 256, 64, True, 64, 0, torch.float32, 2e-5),     # window
+    (2, 2, 128, 128, 64, False, 0, 0, torch.float32, 2e-5),     # bidirect.
+    (2, 2, 200, 200, 64, True, 0, 0, torch.float32, 2e-5),      # ragged
+    (2, 2, 128, 128, 128, True, 0, 0, torch.bfloat16, 2e-2),
+    (2, 2, 64, 256, 64, True, 0, 192, torch.float32, 2e-5),     # Sq != Skv
+    (4, 2, 100, 100, 16, True, 0, 0, torch.float32, 2e-5),      # smoke hd
+    (3, 1, 70, 90, 80, False, 30, 10, torch.float32, 2e-5),     # hd padded
+    (4, 4, 300, 300, 256, True, 0, 0, torch.bfloat16, 2e-2),    # gemma hd
+]
+
+
+def _qkv(BH, BHkv, Sq, Skv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+    return mk(BH, Sq, hd), mk(BHkv, Skv, hd), mk(BHkv, Skv, hd)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(case, cuda):
+    BH, BHkv, Sq, Skv, hd, causal, window, q_offset, dtype, tol = case
+    q, k, v = _qkv(BH, BHkv, Sq, Skv, hd, dtype, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_wrapper_refuses_unsupported_inputs(cuda):
+    q, k, v = _qkv(2, 2, 32, 32, 64, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_bhsd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bhsd(q, k.cpu(), v)   # mixed devices
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bhsd(q.transpose(1, 2).contiguous()
+                                             .transpose(1, 2), k, v)
+    big = torch.zeros(2, 8, 320, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_bhsd(big, big, big)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.flash_attention_bhsd(q[:1].repeat(3, 1, 1), k, v)
+
+
+def test_dense_model_pallas_loss_matches_naive_on_card(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("granite-8b").smoke()
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    before = flash_attention.launches
+    got = Model(cfg, impl="pallas").loss(params, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    want = Model(cfg, impl="naive").loss(params, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
+    # the loss of random weights sits near ln(vocab) whatever attention
+    # does; the logits are what it determines (2^-5 of the largest: flipped
+    # bf16 roundings of activations, as in test_torch_model.py)
+    from repro_torch.models import transformer as tf
+    lg = {impl: tf.lm_logits(cfg, params, tf.lm_hidden(
+        cfg, params, toks, impl=impl)).float().cpu().numpy()
+        for impl in ("pallas", "naive")}
+    np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
+                               atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+
+SSD_CASES = [
+    # (BH, c, Q, P, N, dtype, tol)
+    (2, 2, 16, 8, 16, torch.float32, 1e-4),
+    (4, 4, 32, 16, 32, torch.float32, 1e-4),
+    (1, 1, 64, 64, 128, torch.float32, 1e-4),
+    (2, 2, 16, 8, 16, torch.bfloat16, 5e-2),
+    (2, 3, 8, 16, 16, torch.float32, 1e-4),       # smoke chunk 8
+]
+
+
+def _ssd_inputs(BH, c, Q, P, N, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    x = f(rng.standard_normal((BH, c, Q, P))).to(dtype)
+    dt = f(np.log1p(np.exp(rng.standard_normal((BH, c, Q)))))
+    A = f(-np.exp(0.3 * rng.standard_normal(BH)))
+    B = f(rng.standard_normal((BH, c, Q, N))).to(dtype)
+    C = f(rng.standard_normal((BH, c, Q, N))).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(case, cuda):
+    BH, c, Q, P, N, dtype, tol = case
+    args = _ssd_inputs(BH, c, Q, P, N, dtype, cuda)
+    before = ssd_scan.launches
+    got = ssd_scan.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want = ssd_intra_chunk_ref(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_matches_plain_version_at_mamba_shape(cuda):
+    """mamba2-1.3b's cell (Q 128, P 64, N 128) with unit-normal inputs.
+    Each y entry sums 128 x 128 products of magnitude ~10 in another order
+    than the plain version, so the f32 difference scales with the outputs'
+    size, not with each entry (an elementwise 1e-4 bound failed at 5 of
+    122 880 entries near cancellation, by 1.6e-4 absolute): held to 1e-4 of
+    each output's largest entry."""
+    args = _ssd_inputs(3, 5, 128, 64, 128, torch.float32, cuda)
+    before = ssd_scan.launches
+    got = ssd_scan.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    for g, w in zip(got, ssd_intra_chunk_ref(*args)):
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+def test_full_ssd_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(3)
+    b, l, h, p, n = 1, 256, 4, 64, 128
+    arrs = [(0.5 * rng.standard_normal((b, l, h, p))),
+            np.log1p(np.exp(rng.standard_normal((b, l, h)))),
+            -np.exp(0.2 * rng.standard_normal(h)),
+            0.3 * rng.standard_normal((b, l, n)),
+            0.3 * rng.standard_normal((b, l, n))]
+    ts = [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+    before = ssd_scan.launches
+    y, st = ops.ssd(*(t.to(cuda) for t in ts), chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    # the chunk states are rounded to bf16 inside ops.ssd, so the two
+    # intra-chunk versions' f32 differences can flip a rounding: 2^-7 of
+    # each output's largest entry
+    y_c, st_c = ops.ssd(*ts, chunk=128)
+    for g, w in ((y, y_c), (st, st_c)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=2.0 ** -7 * float(w.abs().max()))
+
+
+def test_ssd_wrapper_refuses_unsupported_inputs(cuda):
+    x, dt, A, B, C = _ssd_inputs(2, 2, 16, 8, 16, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_intra_chunk(x.half(), dt, A, B, C)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_intra_chunk(x, dt.cpu(), A, B, C)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd_intra_chunk(x, dt, A, B[..., :8], C)
+    big = _ssd_inputs(1, 1, 512, 64, 128, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan.ssd_intra_chunk(*big)

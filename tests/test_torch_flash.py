@@ -1,0 +1,112 @@
+"""Flash attention: the port's ``ops.flash_attention`` (its plain version on
+the CPU) and ``ref.attention_ref`` against the JAX package's
+``ops.flash_attention`` (Pallas kernel in interpret mode) on the cases of
+``tests/test_kernels_flash.py``, at its tolerances (2e-5 f32, 2e-2 bf16);
+the model's naive and blockwise paths against the reference's.  The CUDA
+kernel against its plain version is in ``test_torch_cuda.py``.
+
+Inputs come from numpy with a fixed seed; bf16 inputs are rounded from the
+same f32 values in both packages.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# intra-op threads of parallel test workers only contend for the cores
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import flash_attention, ops  # noqa: E402
+from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+
+CASES = [
+    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype, tol)
+    (1, 128, 128, 2, 2, 64, True, 0, "float32", 2e-5),
+    (2, 256, 256, 4, 2, 64, True, 0, "float32", 2e-5),
+    (1, 128, 128, 4, 1, 32, True, 0, "float32", 2e-5),     # MQA
+    (1, 256, 256, 2, 2, 64, True, 64, "float32", 2e-5),    # sliding window
+    (1, 128, 128, 2, 2, 64, False, 0, "float32", 2e-5),    # bidirectional
+    (1, 200, 200, 2, 2, 64, True, 0, "float32", 2e-5),     # ragged blocks
+    (1, 128, 128, 2, 2, 128, True, 0, "bfloat16", 2e-2),
+    (1, 64, 256, 2, 2, 64, True, 0, "float32", 2e-5),      # Sq != Skv
+]
+
+
+def _qkv(B, Sq, Skv, H, Hkv, hd, seed=42):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, Hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_matches_jax_kernel(case):
+    B, Sq, Skv, H, Hkv, hd, causal, window, dtype, tol = case
+    q, k, v = _qkv(B, Sq, Skv, H, Hkv, hd)
+    q_offset = Skv - Sq if Sq != Skv else 0
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True, **kw),
+        np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == tdt and tuple(got.shape) == (B, Sq, H, hd)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    flat = lambda t, n: t.transpose(1, 2).reshape(B * n, -1, hd)  # noqa
+    ref = attention_ref(flat(tq, H), flat(tk, Hkv), flat(tv, Hkv), **kw)
+    ref = ref.reshape(B, H, Sq, hd).transpose(1, 2)
+    np.testing.assert_allclose(ref.float().numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("causal,window,block", [(True, 0, 64),
+                                                 (True, 48, 64),
+                                                 (False, 0, 48),
+                                                 (True, 0, 1024)])
+def test_naive_and_blockwise_match_jax(causal, window, block):
+    q, k, v = _qkv(2, 112, 112, 4, 2, 32, seed=7)
+    kw = dict(causal=causal, window=window)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    pairs = [(attention.naive_attention(tq, tk, tv, **kw),
+              jattn.naive_attention(jq, jk, jv, **kw)),
+             (attention.blockwise_attention(tq, tk, tv, block=block, **kw),
+              jattn.blockwise_attention(jq, jk, jv, block=block, **kw))]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+    # bf16 through the model's naive path: scores and p rounded to bf16
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (tq, tk, tv))
+    got = attention.naive_attention(bq, bk, bv, **kw)
+    want = jattn.naive_attention(*(a.astype(jnp.bfloat16)
+                                   for a in (jq, jk, jv)), **kw)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_matches_model_blockwise():
+    """As in the reference: the kernel's function agrees with the
+    blockwise path."""
+    q, k, v = _qkv(2, 128, 128, 4, 2, 64, seed=7)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    a = ops.flash_attention(tq, tk, tv, causal=True)
+    b = attention.blockwise_attention(tq, tk, tv, causal=True, block=64)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_takes_plain_version_and_other_devices_raise():
+    q = torch.ones(2, 8, 16)
+    k = torch.ones(1, 8, 16)
+    before = flash_attention.launches
+    out = flash_attention.flash_attention_bhsd(q, k, k, causal=True)
+    assert torch.equal(out, attention_ref(q, k, k, causal=True))
+    assert flash_attention.launches == before        # no kernel launched
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bhsd(q.to("meta"), k.to("meta"),
+                                             k.to("meta"))

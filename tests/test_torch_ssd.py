@@ -1,0 +1,112 @@
+"""SSD: the port's ``ref.ssd_intra_chunk_ref`` (the plain version the
+kernel's wrapper takes on the CPU) against the JAX package's Pallas kernel
+in interpret mode, on the cases of ``tests/test_kernels_ssd.py`` at its
+tolerances (1e-4 f32, 5e-2 bf16); and ``ops.ssd`` whole against the JAX
+package's ``ops.ssd`` and the model's chunked SSD at 2e-4.  The CUDA kernel
+against its plain version is in ``test_torch_cuda.py``.
+
+Inputs come from numpy with a fixed seed and go to both packages.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# intra-op threads of parallel test workers only contend for the cores
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.ssd_scan import ssd_intra_chunk as jssd  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.kernels import ops, ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import ssd_intra_chunk_ref  # noqa: E402
+
+CASES = [
+    # (BH, c, Q, P, N, dtype, tol)
+    (2, 2, 16, 8, 16, "float32", 1e-4),
+    (4, 4, 32, 16, 32, "float32", 1e-4),
+    (1, 1, 64, 64, 128, "float32", 1e-4),
+    (2, 2, 16, 8, 16, "bfloat16", 5e-2),
+]
+
+
+def _inputs(BH, c, Q, P, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BH, c, Q, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((BH, c, Q)))).astype(np.float32)
+    A = -np.exp(0.3 * rng.standard_normal(BH)).astype(np.float32)
+    B = rng.standard_normal((BH, c, Q, N)).astype(np.float32)
+    C = rng.standard_normal((BH, c, Q, N)).astype(np.float32)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_intra_chunk_matches_jax_kernel(case):
+    BH, c, Q, P, N, dtype, tol = case
+    x, dt, A, B, C = _inputs(BH, c, Q, P, N)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jssd(jnp.asarray(x, jdt), jnp.asarray(dt), jnp.asarray(A),
+                jnp.asarray(B, jdt), jnp.asarray(C, jdt), interpret=True)
+    tx, tB, tC = (torch.from_numpy(a).to(tdt) for a in (x, B, C))
+    tdt_, tA = torch.from_numpy(dt), torch.from_numpy(A)
+    for fn in (ssd_intra_chunk_ref, ssd_scan.ssd_intra_chunk):
+        got = fn(tx, tdt_, tA, tB, tC)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                       atol=tol)
+
+
+def _full_inputs(b, l, h, p, n, seed=3):
+    rng = np.random.default_rng(seed)
+    x = (0.5 * rng.standard_normal((b, l, h, p))).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h)))).astype(np.float32)
+    A = -np.exp(0.2 * rng.standard_normal(h)).astype(np.float32)
+    B = (0.3 * rng.standard_normal((b, l, n))).astype(np.float32)
+    C = (0.3 * rng.standard_normal((b, l, n))).astype(np.float32)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 32, 8, 16, 16), 8),
+                                         ((1, 64, 4, 16, 32), 16),
+                                         ((1, 24, 2, 8, 8), 64)])
+def test_full_ssd_matches_jax(shape, chunk):
+    arrs = _full_inputs(*shape)
+    ja = [jnp.asarray(a) for a in arrs]
+    y_j, st_j = jops.ssd(*ja, chunk=chunk, interpret=True)
+    before = ssd_scan.launches
+    y_t, st_t = ops.ssd(*(torch.from_numpy(a) for a in arrs), chunk=chunk)
+    assert ssd_scan.launches == before           # the CPU runs no kernel
+    assert y_t.dtype == torch.float32 and st_t.dtype == torch.float32
+    for got, want in ((y_t, y_j), (st_t, st_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
+    if chunk <= shape[1]:                        # the model's oracle
+        y_m, st_m = jssm.ssd_chunked(*ja, chunk=chunk)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_m), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(st_t.numpy(), np.asarray(st_m),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_full_ssd_bf16_input_keeps_dtype():
+    arrs = _full_inputs(1, 32, 2, 8, 8)
+    ja = [jnp.asarray(a) for a in arrs]
+    ja[0] = ja[0].astype(jnp.bfloat16)
+    y_j, st_j = jops.ssd(*ja, chunk=8, interpret=True)
+    ta = [torch.from_numpy(a) for a in arrs]
+    ta[0] = ta[0].to(torch.bfloat16)
+    y_t, st_t = ops.ssd(*ta, chunk=8)
+    assert y_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(y_t.float().numpy(),
+                               np.asarray(y_j, np.float32), rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(st_t.numpy(), np.asarray(st_j), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ragged_length_is_refused():
+    arrs = [torch.from_numpy(a) for a in _full_inputs(1, 20, 2, 8, 8)]
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd(*arrs, chunk=8)
