@@ -6,7 +6,10 @@ Phases, in order, each printing one line (``[phase] ...``) and failing
 loudly:
 
 1. environment: torch, the card, its power limit (nvidia-smi);
-2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source;
+2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source,
+   with ptxas's registers, spills and warnings of each kernel and the
+   tensor-core flash kernel's shared memory (it fails on a spill or on
+   ``setmaxnreg`` ignored, C7508);
 3. RMSNorm: drives ``ops.rmsnorm`` (forward and backward) with the launch
    counts set to 0 and asserts the kernel ran; then holds the kernel
    against its plain version at each shape (f32 tol 1e-5, bf16 tol 2e-2)
@@ -21,13 +24,20 @@ loudly:
    kernel launch counts set to 0 before and read after; held against
    ``tests/torch_fixtures/fig2_reference.json`` (written by the JAX
    package) under the same bounds;
-6. flash attention: the kernel against ``ref.attention_ref`` at the cases
+6. flash attention, two kernels chosen by ``flash_attention.route``: the
+   tensor-core kernel (bf16, hd 64-256) and the CUDA-core kernel (the
+   rest).  Drives ``ops.flash_attention`` on each route with the counts
+   set to 0; holds each case against ``ref.attention_ref`` at the cases
    of ``tests/test_kernels_flash.py`` (f32 2e-5, bf16 2e-2) and at the
    shapes of the model path (granite-8b, gemma-7b's hd 256, hymba-1.5b's
    window, Sq != Skv with ``q_offset``; bf16 1e-3 + 2^-7 |o|, and granite
-   and gemma in f32 at 2e-5); times of the kernel, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
-   granite-8b's shape;
+   and gemma in f32 at 2e-5), each case naming its route and moving its
+   route's count by one; times at the bf16 path shapes of the tensor-core
+   kernel and of the CUDA-core kernel through its own entry point, and at
+   granite-8b's shape also of the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   the CUDA-core kernel, its plain version and SDPA on granite-8b's f32
+   inputs;
 7. SSD: the intra-chunk kernel against ``ref.ssd_intra_chunk_ref`` at the
    cases of ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at
    mamba2-1.3b's shape, where ``ops.ssd`` whole (one launch) is held
@@ -37,11 +47,13 @@ loudly:
 8. granite-8b at full width and 2 layers against
    ``tests/torch_fixtures/granite8b_2l_reference.json`` (written by the JAX
    package with the same ``carry.numpy_params`` weights): ``Model.loss``
-   with ``impl="pallas"`` (2 kernel launches), the forward's top-5 logits
+   with ``impl="pallas"`` (2 tensor-core kernel launches), the forward's
+   top-5 logits
    at 8 positions, and a greedy ``Engine`` run, teacher-forced on the
    reference's tick inputs;
 9. granite-8b at full size (36 layers, seeded weights on the card):
-   ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"`` (36 launches)
+   ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"`` (36 launches of
+   the tensor-core kernel)
    against ``impl="naive"``, loss and whole logit rows at 8 positions of
    each sequence, then ``launch/serve.py``'s engine serving 8 requests on
    4 slots (no kernel launch, as in the reference).
@@ -302,7 +314,11 @@ def planted_faults(ops, model, params, batch, positions, err_of,
 
 
 def counts(kmods) -> dict:
-    return {k: m.launches for k, m in kmods.items()}
+    """Every kernel's launch count; ``flash_attention`` counts both flash
+    routes, ``flash_attention_tc`` the tensor-core route alone."""
+    out = {k: m.launches for k, m in kmods.items()}
+    out["flash_attention_tc"] = kmods["flash_attention"].tc_launches
+    return out
 
 
 def zero(kmods) -> None:
@@ -310,6 +326,33 @@ def zero(kmods) -> None:
     torch.cuda.synchronize()
     for m in kmods.values():
         m.launches = 0
+    kmods["flash_attention"].tc_launches = 0
+
+
+def build_report(_build, logs: dict) -> None:
+    """ptxas's lines for each kernel (registers, spills, warnings) and the
+    tensor-core flash kernel's shared memory; fails on a spill in that
+    kernel or on ``setmaxnreg`` ignored (C7508)."""
+    import ctypes
+    import re
+    for k, log in logs.items():
+        entry = ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w*?_cu_[0-9a-f]+\d+",
+                               "", m.group(1)).split("EE")[0][:32]
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "C7508")):
+                say("build", f"{k} {entry}: {line.strip()}")
+        if k == "flash_attention_tc" and ("C7508" in log or re.search(
+                r"[1-9]\d* bytes spill", log)):
+            raise AssertionError(f"flash_attention_tc: ptxas spills or "
+                                 f"ignores setmaxnreg:\n{log}")
+    fn = _build.load("flash_attention_tc").flash_attention_tc_smem
+    fn.argtypes, fn.restype = [ctypes.c_int64], ctypes.c_int
+    say("build", "flash_attention_tc dynamic shared memory (bytes by head "
+        f"dim): {json.dumps({hd: fn(hd) for hd in (64, 128, 192, 256)})}")
 
 
 def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
@@ -327,7 +370,9 @@ def bound(nbytes: float, flops: float, rate: float) -> tuple:
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def phase_flash(dev, flash_attention, ref) -> dict:
+def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
+    """Returns the closing line's entries of the tensor-core kernel and of
+    the CUDA-core kernel."""
     import torch
     import torch.nn.functional as F
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -338,6 +383,26 @@ def phase_flash(dev, flash_attention, ref) -> dict:
                                     ).to(dt[dtype])
         return mk(B * H, Sq, hd), mk(B * Hkv, Skv, hd), mk(B * Hkv, Skv, hd)
 
+    # each route's own path: the public entry point at granite-8b's shape,
+    # [B, S, H, hd] in the model's layout, bf16 then f32
+    B, S, H, Hkv, hd = 2, 4096, 32, 8, 128
+    paths = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = (t.view(B, -1, S, hd).transpose(1, 2)
+                   for t in qkv(B, S, S, H, Hkv, hd, dtype))
+        zero(kmods)
+        ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        paths[dtype] = counts(kmods)
+        del q, k, v
+    if paths["bfloat16"]["flash_attention_tc"] != 1 \
+            or paths["float32"]["flash_attention_tc"] \
+            or paths["float32"]["flash_attention"] != 1:
+        raise AssertionError(f"ops.flash_attention launched {paths}; want "
+                             "the tensor-core kernel for bf16, the "
+                             "CUDA-core kernel for f32")
+    say("flash", f"ops.flash_attention path at granite-8b's shape: {paths}")
+
     cases = [(f"test {i}", c[:-1], (c[-1], c[-1]))
              for i, c in enumerate(FLASH_CASES)] \
         + [(tag, c, FLASH_PATH_TOL[c[-1]]) for tag, c in FLASH_PATH.items()]
@@ -347,29 +412,45 @@ def phase_flash(dev, flash_attention, ref) -> dict:
         q, k, v = qkv(B, Sq, Skv, H, Hkv, hd, dtype)
         q_offset = Skv - Sq
         kw = dict(causal=causal, window=window, q_offset=q_offset)
+        route = flash_attention.route(q.dtype, hd)
+        before = (flash_attention.launches, flash_attention.tc_launches)
         got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
         want = ref.attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        moved = (flash_attention.launches - before[0],
+                 flash_attention.tc_launches - before[1])
+        if moved != (1, int(route == "tensor_core")):
+            raise AssertionError(f"flash {tag}: route {route}, counts moved "
+                                 f"by {moved}")
         d = (got.float() - want.float()).abs()
         err = float(d.max())
         if not bool((d <= atol + rtol * want.float().abs()).all()):
-            raise AssertionError(f"flash {tag}: max abs err {err} beyond "
-                                 f"{atol} + {rtol} |want|")
-        rec = dict(case=tag, B=B, Sq=Sq, Skv=Skv, H=H, Hkv=Hkv, hd=hd,
-                   causal=causal, window=window, q_offset=q_offset,
+            raise AssertionError(f"flash {tag} ({route}): max abs err {err} "
+                                 f"beyond {atol} + {rtol} |want|")
+        rec = dict(case=tag, route=route, B=B, Sq=Sq, Skv=Skv, H=H, Hkv=Hkv,
+                   hd=hd, causal=causal, window=window, q_offset=q_offset,
                    dtype=dtype, max_abs_err=err, atol=atol, rtol=rtol,
                    mean_abs_want=float(want.float().abs().mean()))
-        if tag in FLASH_PATH and dtype == "bfloat16":
+        if tag in FLASH_PATH:
             pairs = attention_pairs(Sq, Skv, causal, window, q_offset)
             flops = 4.0 * hd * B * H * pairs
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops,
-                                                     H100_BF16_FLOPS)
+            rate = H100_BF16_FLOPS if dtype == "bfloat16" else H100_F32_FLOPS
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, rate)
             rec["gflop"] = flops / 1e9
+        if tag in FLASH_PATH and (dtype == "bfloat16"
+                                  or tag == "granite-8b f32"):
+            o = torch.empty_like(q)
             rec["ms"] = time_ms(lambda: flash_attention.flash_attention_bhsd(
-                q, k, v, **kw), iters=5)
-            if tag == "granite-8b":
+                q, k, v, **kw), iters=10)
+            if route == "tensor_core":
+                # the CUDA-core kernel on the same bf16 inputs, through its
+                # own entry point
+                rec["cuda_core_ms"] = time_ms(
+                    lambda: flash_attention.launch_route(
+                        "cuda_core", q, k, v, o, **kw), iters=3)
+            if tag.startswith("granite-8b") and not q_offset:
                 rec["plain_ms"] = time_ms(lambda: ref.attention_ref(
                     q, k, v, **kw), iters=3)
                 q4, k4, v4 = (t.view(B, -1, t.shape[1], hd)
@@ -377,21 +458,31 @@ def phase_flash(dev, flash_attention, ref) -> dict:
                 rec["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, is_causal=causal, enable_gqa=True),
-                    iters=5)
+                    iters=10)
             rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rows.append(rec)
         say("flash", json.dumps(rec))
         del q, k, v, got, want, d
-    head = next(r for r in rows if r["case"] == "granite-8b")
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:71",
-                launches=None, max_abs_err=head["max_abs_err"],
-                ms=head["ms"], plain_ms=head["plain_ms"],
-                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=head["library_ms"],
-                shape=[2, 4096, 32, 8, 128], dtype="bfloat16",
-                per_case=rows)
+    entries = []
+    for name, src, tag, dtype in (
+            ("flash_attention_tc", "flash_attention_tc.cu", "granite-8b",
+             "bfloat16"),
+            ("flash_attention", "flash_attention.cu", "granite-8b f32",
+             "float32")):
+        head = next(r for r in rows if r["case"] == tag)
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces="src/repro/kernels/flash_attention.py:71",
+            launches=paths[dtype][name], path=f"ops.flash_attention, "
+            f"{dtype} at granite-8b's shape", max_abs_err=head["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], shape=[2, 4096, 32, 8, 128],
+            dtype=dtype))
+    entries[0]["per_case"] = rows
+    return tuple(entries)
 
 
 def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
@@ -512,9 +603,10 @@ def phase_granite_reference(dev, kmods) -> dict:
     with torch.no_grad():
         loss = float(model.loss(params, batch))
     path = counts(kmods)
-    if path["flash_attention"] != cfg.n_layers:
+    if path["flash_attention"] != cfg.n_layers \
+            or path["flash_attention_tc"] != cfg.n_layers:
         raise AssertionError(f"Model.loss launched {path}, want "
-                             f"{cfg.n_layers} flash launches")
+                             f"{cfg.n_layers} tensor-core flash launches")
     if abs(loss - fx["loss"]) > GRANITE_LOSS_RTOL * abs(fx["loss"]):
         raise AssertionError(f"2-layer loss {loss} vs reference "
                              f"{fx['loss']} (rel tol {GRANITE_LOSS_RTOL})")
@@ -634,10 +726,12 @@ def phase_granite_full(dev, kmods, smi) -> dict:
         loss_p = float(model.loss(params, batch))
         t_fwd = time.perf_counter() - t
         path = counts(kmods)
-        if path["flash_attention"] != cfg.n_layers or path["ssd_scan"] \
-                or path["rmsnorm"]:
+        if path["flash_attention"] != cfg.n_layers \
+                or path["flash_attention_tc"] != cfg.n_layers \
+                or path["ssd_scan"] or path["rmsnorm"]:
             raise AssertionError(f"full forward launched {path}, want "
-                                 f"{cfg.n_layers} flash launches")
+                                 f"{cfg.n_layers} tensor-core flash "
+                                 "launches")
         peak_fwd = torch.cuda.max_memory_allocated(dev)
         naive = Model(cfg, impl="naive")
         t = time.perf_counter()
@@ -722,10 +816,7 @@ def main() -> int:
     t = time.perf_counter()
     logs = _build.build()
     say("build", f"{time.perf_counter() - t:.1f} s for {sorted(logs)}")
-    for k, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                say("build", f"{k}: {line.strip()}")
+    build_report(_build, logs)
 
     kern = phase_rmsnorm(dev, rmsnorm, ops, ref)
 
@@ -776,14 +867,19 @@ def main() -> int:
     if any(sim_launches.values()):
         raise AssertionError(f"unexpected kernel launches: {sim_launches}")
 
-    flash = phase_flash(dev, flash_attention, ref)
+    flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
     ssd = phase_ssd(dev, ssd_scan, ops, ref, kmods)
     phase_granite_reference(dev, kmods)
     full = phase_granite_full(dev, kmods, smi)
-    flash["launches"] = full["forward"]["flash_launches"]["flash_attention"]
+    # the main path's launches: the 36-layer forward of phase 9
+    path = full["forward"]["flash_launches"]
+    flash_tc.update(launches=path["flash_attention_tc"],
+                    launches_all_routes=path["flash_attention"],
+                    path="granite-8b forward, 36 layers (phase 9)")
 
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": [kern, flash, ssd]}), flush=True)
+    print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

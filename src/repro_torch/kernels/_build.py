@@ -22,6 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"rmsnorm": "rmsnorm.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_tc": "flash_attention_tc.cu",
            "ssd_scan": "ssd_scan.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}

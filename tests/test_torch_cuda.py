@@ -8,10 +8,13 @@ without one).  Torch only, so they also run where JAX is not installed:
 - the wrapper refuses what the kernel does not take (no fallback);
 - the simulator on the card equals the simulator on the CPU, every
   ``SimState`` leaf exactly, for a single point and a mixed-budget batch;
-- the flash-attention kernel against its plain version at the flash test's
-  cases and tolerances (f32 2e-5, bf16 2e-2) plus head dims 16, 80 and 256,
-  one launch per call, and a dense model's ``impl="pallas"`` loss and
-  logits against ``impl="naive"`` with one launch per layer;
+- the flash-attention kernels against their plain version at the flash
+  test's cases and tolerances (f32 2e-5, bf16 2e-2) plus head dims 16, 80
+  and 256, one launch per call; the tensor-core kernel (bf16, hd 64-256) at
+  its own cases (head dims, GQA and MQA, ragged and untiled lengths, the
+  window, non-causal, ``q_offset``), each moving its own launch count by
+  one; and dense models' ``impl="pallas"`` loss and logits against
+  ``impl="naive"`` with one launch per layer, on each route;
 - the SSD intra-chunk kernel against its plain version at the SSD test's
   cases and tolerances (f32 1e-4, bf16 5e-2) plus mamba2-1.3b's cell
   shape, one launch per call, and ``ops.ssd`` on the card against the CPU;
@@ -154,6 +157,67 @@ def test_flash_kernel_matches_plain_version(case, cuda):
                                atol=tol)
 
 
+TC_CASES = [
+    # (BH, BHkv, Sq, Skv, hd, causal, window, q_offset): bf16, tol 2e-2
+    (2, 2, 256, 256, 64, True, 0, 0),           # hd 64
+    (2, 2, 256, 256, 128, True, 0, 0),          # hd 128
+    (2, 2, 256, 256, 256, True, 0, 0),          # hd 256 (64-key tiles)
+    (8, 2, 256, 256, 128, True, 0, 0),          # GQA
+    (4, 1, 256, 256, 64, True, 0, 0),           # MQA
+    (2, 2, 200, 200, 128, True, 0, 0),          # ragged Sq = Skv
+    (2, 2, 128, 300, 64, True, 0, 172),         # Skv not a tile multiple
+    (2, 2, 384, 384, 256, True, 0, 0),          # ragged 64-key tiles
+    (2, 2, 512, 512, 64, True, 128, 0),         # window
+    (3, 1, 300, 300, 128, True, 100, 0),        # window, GQA, ragged
+    (2, 2, 200, 200, 128, False, 0, 0),         # non-causal
+    (2, 2, 128, 512, 128, True, 0, 384),        # Sq != Skv, q_offset
+    (2, 1, 96, 200, 256, False, 40, 60),        # window without causal
+    (2, 2, 130, 130, 80, True, 0, 0),           # head padded to 128
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_core_kernel_matches_plain_version(case, cuda):
+    BH, BHkv, Sq, Skv, hd, causal, window, q_offset = case
+    q, k, v = _qkv(BH, BHkv, Sq, Skv, hd, torch.bfloat16, cuda, seed=1)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert flash_attention.route(q.dtype, hd) == "tensor_core"
+    before = (flash_attention.launches, flash_attention.tc_launches)
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.tc_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_f32_takes_cuda_core_kernel(cuda):
+    q, k, v = _qkv(2, 2, 128, 128, 128, torch.float32, cuda)
+    before = (flash_attention.launches, flash_attention.tc_launches)
+    got = flash_attention.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.tc_launches) \
+        == (before[0] + 1, before[1])
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_tensor_core_refuses_misaligned_inputs(cuda):
+    """TMA needs 16-byte aligned tensors: a view 2 bytes into its storage
+    raises (no other kernel takes it instead)."""
+    q, k, v = _qkv(2, 2, 64, 64, 64, torch.bfloat16, cuda)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qm = flat[1:].view(q.shape).copy_(q)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_attention_bhsd(qm, k, v)
+    assert flash_attention.launches == before
+
+
 def test_flash_wrapper_refuses_unsupported_inputs(cuda):
     q, k, v = _qkv(2, 2, 32, 32, 64, torch.float32, cuda)
     with pytest.raises(TypeError):
@@ -171,17 +235,29 @@ def test_flash_wrapper_refuses_unsupported_inputs(cuda):
 
 
 def test_dense_model_pallas_loss_matches_naive_on_card(cuda):
+    """The smoke config's bf16 heads (hd 16) take the CUDA-core kernel."""
     from repro_torch.configs.base import get_config
+    _pallas_matches_naive(get_config("granite-8b").smoke(), cuda, tc=False)
+
+
+def test_dense_model_tensor_core_route_matches_naive_on_card(cuda):
+    """With 64-wide heads every layer takes the tensor-core kernel."""
+    from repro_torch.configs.base import get_config
+    _pallas_matches_naive(get_config("granite-8b").smoke().scaled(
+        head_dim=64), cuda, tc=True)
+
+
+def _pallas_matches_naive(cfg, cuda, tc: bool):
     from repro_torch.models.model import Model
-    cfg = get_config("granite-8b").smoke()
     params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=cuda)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96))).to(cuda)
     batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
-    before = flash_attention.launches
+    before = (flash_attention.launches, flash_attention.tc_launches)
     got = Model(cfg, impl="pallas").loss(params, batch)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + cfg.n_layers
+    assert (flash_attention.launches, flash_attention.tc_launches) == (
+        before[0] + cfg.n_layers, before[1] + int(tc) * cfg.n_layers)
     want = Model(cfg, impl="naive").loss(params, batch)
     np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
     # the loss of random weights sits near ln(vocab) whatever attention

@@ -6,7 +6,9 @@ the model's naive and blockwise paths against the reference's.  The CUDA
 kernel against its plain version is in ``test_torch_cuda.py``.
 
 Inputs come from numpy with a fixed seed; bf16 inputs are rounded from the
-same f32 values in both packages.
+same f32 values in both packages.  The route between the two CUDA kernels
+is a pure function of dtype and head dim, tested here; the kernels
+themselves run only on the card.
 """
 import numpy as np
 import pytest
@@ -98,6 +100,37 @@ def test_flash_matches_model_blockwise():
     a = ops.flash_attention(tq, tk, tv, causal=True)
     b = attention.blockwise_attention(tq, tk, tv, causal=True, block=64)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tensor_core"),     # hymba, whisper
+    (torch.bfloat16, 128, "tensor_core"),    # granite, llama, mixtral
+    (torch.bfloat16, 256, "tensor_core"),    # gemma
+    (torch.bfloat16, 80, "tensor_core"),     # padded to 128 columns
+    (torch.bfloat16, 192, "tensor_core"),
+    (torch.float32, 128, "cuda_core"),       # TF32 would break 2e-5
+    (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 16, "cuda_core"),       # the smoke configs' heads
+    (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 100, "cuda_core"),      # hd % 8: no TMA stride
+    (torch.bfloat16, 264, "cuda_core"),
+])
+def test_route_from_dtype_and_head_dim(dtype, hd, want):
+    assert flash_attention.route(dtype, hd) == want
+
+
+def test_cpu_bf16_takes_plain_version_without_counting():
+    """A CPU tensor whose CUDA route would be the tensor-core kernel takes
+    the plain version and counts no launch of either kernel."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16) for s in ((4, 40, 64), (2, 40, 64),
+                                             (2, 40, 64)))
+    assert flash_attention.route(q.dtype, q.shape[-1]) == "tensor_core"
+    before = (flash_attention.launches, flash_attention.tc_launches)
+    out = flash_attention.flash_attention_bhsd(q, k, v, causal=True)
+    assert torch.equal(out, attention_ref(q, k, v, causal=True))
+    assert (flash_attention.launches, flash_attention.tc_launches) == before
 
 
 def test_cpu_takes_plain_version_and_other_devices_raise():
