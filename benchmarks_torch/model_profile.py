@@ -1,16 +1,17 @@
-"""Where granite-8b's forward and decode ticks spend their time on the card.
+"""Where a model's forward and decode ticks spend their time on the card.
 
-    python3 benchmarks_torch/model_profile.py
+    python3 benchmarks_torch/model_profile.py [--arch granite-8b|mamba2-1.3b]
 
-Builds granite-8b at full size (36 layers, seeded weights on the card) and
-reports, from ``torch.profiler`` traces:
+Builds the model at full size (granite-8b: 36 layers; mamba2-1.3b: 48;
+seeded weights on the card) and reports, from ``torch.profiler`` traces:
 
 - one ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"``: wall s,
   device-busy s (the sum of kernel durations), the device's idle share,
-  and device time grouped into the flash kernel, matrix products and the
-  rest;
-- 16 engine decode ticks with 4 slots and a 4096-slot cache
-  (positions near 64, as in ``chip_smoke.py``'s serve phase): host ms per
+  and device time grouped into this repo's kernels (the tensor-core flash
+  or SSD kernel), matrix products and the rest;
+- 16 engine decode ticks with 4 slots and a 4096-slot cache (the SSM
+  state, for mamba2) at positions near 64, as in ``chip_smoke.py``'s
+  serve phase: host ms per
   tick, CUDA kernels per tick, device-busy ms per tick, idle share and the
   kernels with the most device time.
 
@@ -50,13 +51,21 @@ def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash kernel"
+    if "ssd_intra_tc" in n:
+        return "SSD tensor-core kernel"
+    if "ssd_intra" in n:
+        return "SSD CUDA-core kernel"
     if "gemm" in n or "sm90" in n or "cutlass" in n or "nvjet" in n:
         return "matrix products"
     return "other"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("model_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -69,7 +78,7 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    cfg = get_config("granite-8b")
+    cfg = get_config(args.arch)
     model = Model(cfg, impl="pallas")
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -83,7 +92,8 @@ def main() -> int:
     groups = collections.Counter()
     for n, us in by_name.items():
         groups[_group(n)] += us
-    fwd = dict(layers=cfg.n_layers, tokens=2 * 4096, wall_s=wall_us / 1e6,
+    fwd = dict(arch=cfg.name, layers=cfg.n_layers, tokens=2 * 4096,
+               wall_s=wall_us / 1e6, tokens_per_s=2 * 4096e6 / wall_us,
                device_busy_s=busy / 1e6,
                device_idle_share=1 - busy / wall_us if kernels else None,
                kernels=len(kernels),
@@ -111,7 +121,7 @@ def main() -> int:
         host_ms = (time.perf_counter() - t) * 1e3 / TICKS
         wall_us, kernels, by_name = _trace(lambda: ticks(TICKS, 64))
     busy = sum(by_name.values())
-    dec = dict(slots=slots, max_seq=max_seq, ticks=TICKS,
+    dec = dict(arch=cfg.name, slots=slots, max_seq=max_seq, ticks=TICKS,
                host_ms_per_tick=host_ms,
                traced_wall_ms_per_tick=wall_us / 1e3 / TICKS,
                kernels_per_tick=len(kernels) / TICKS,

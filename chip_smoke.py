@@ -8,8 +8,8 @@ loudly:
 1. environment: torch, the card, its power limit (nvidia-smi);
 2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source,
    with ptxas's registers, spills and warnings of each kernel and the
-   tensor-core flash kernel's shared memory (it fails on a spill or on
-   ``setmaxnreg`` ignored, C7508);
+   tensor-core kernels' shared memory (it fails on a spill in either, or
+   on ``setmaxnreg`` ignored in the flash kernel, C7508);
 3. RMSNorm: drives ``ops.rmsnorm`` (forward and backward) with the launch
    counts set to 0 and asserts the kernel ran; then holds the kernel
    against its plain version at each shape (f32 tol 1e-5, bf16 tol 2e-2)
@@ -38,12 +38,21 @@ loudly:
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
    the CUDA-core kernel, its plain version and SDPA on granite-8b's f32
    inputs;
-7. SSD: the intra-chunk kernel against ``ref.ssd_intra_chunk_ref`` at the
-   cases of ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at
-   mamba2-1.3b's shape, where ``ops.ssd`` whole (one launch) is held
-   against its plain composition on the CPU (2e-4); times of the kernel,
-   its plain version, ``ops.ssd`` and ``ops.ssd`` composed with the plain
-   version;
+7. SSD, two kernels chosen by ``ssd_scan.route``: the tensor-core kernel
+   (bf16 x, B, C, Q 64-256) and the CUDA-core kernel (the rest).  The
+   CUDA-core kernel against ``ref.ssd_intra_chunk_ref`` at the cases of
+   ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at mamba2-1.3b's
+   f32 cell, where ``ops.ssd`` whole (one launch) is held against its
+   plain composition on the CPU (2e-4); times of the kernel, its plain
+   version, ``ops.ssd`` and ``ops.ssd`` composed with the plain version.
+   The tensor-core kernel at bf16 cases of (Q, P, N) with ragged chunks
+   and heads and B, C by group (``heads`` 1, 8, 64), and at the model's
+   shape (B 2 x 64 heads, 32 chunks of 128, P 64, N 128), each held to
+   1e-4 of each output's largest entry and moving its route's count by
+   one; the model's shape also with the scores rounded to bf16 as the
+   model path asks (2^-7: a flipped rounding of one score); times at the
+   model's shape, scores rounded, of the tensor-core kernel, the
+   CUDA-core kernel through its own entry point and the plain version;
 8. granite-8b at full width and 2 layers against
    ``tests/torch_fixtures/granite8b_2l_reference.json`` (written by the JAX
    package with the same ``carry.numpy_params`` weights): ``Model.loss``
@@ -58,9 +67,27 @@ loudly:
    each sequence, then ``launch/serve.py``'s engine serving 8 requests on
    4 slots (no kernel launch, as in the reference).
 
+10. mamba2-1.3b at full width and 2 layers against
+    ``tests/torch_fixtures/mamba2_2l_reference.json`` (the JAX package op
+    by op, same ``carry.numpy_params`` weights): ``Model.loss`` with
+    ``impl="pallas"`` (2 tensor-core SSD launches), the forward's top-5
+    logits at 8 positions across the chunk edges, and a greedy ``Engine``
+    run teacher-forced on the reference's tick inputs (f32 SSM state);
+11. mamba2-1.3b at full size (48 layers, seeded weights on the card):
+    ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"`` (48 launches of
+    the tensor-core SSD kernel, none of any other kernel) against
+    ``impl="naive"``: the loss, and every layer's output on naive's
+    residual stream (at random weights these 48 layers move the logits by
+    their whole scale for a one-ulp change of one input, which the phase
+    measures and prints, so whole logit rows are reported, not held);
+    the same forward timed with the CUDA-core SSD kernel forced in
+    through its own entry point; then ``launch/serve.py``'s engine
+    serving 8 requests on 4 slots (no kernel launch).
+
 Phases 8 and 9 also plant two faults in the flash entry point (output
-zeroed; keys 128 and more back dropped) and fail unless their logit
-checks reject both.
+zeroed; keys 128 and more back dropped), phases 10 and 11 two in the SSD
+intra-chunk entry point (``y_diag`` zeroed; the decay dropped, L = 1 on
+the lower triangle), and fail unless their logit checks reject each.
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after.  It prints the card's name and power limit and a JSON line of kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Without
@@ -252,6 +279,23 @@ SSD_CASES = [     # tests/test_kernels_ssd.py: (BH, c, Q, P, N, dtype, tol)
     (2, 2, 16, 8, 16, "bfloat16", 5e-2),
 ]
 MAMBA = dict(b=1, l=4096, h=64, p=64, n=128, chunk=128)   # mamba2-1.3b
+# the tensor-core SSD kernel: (groups, heads, chunks, Q, P, N), bf16 x/B/C
+SSD_TC_CASES = [
+    (3, 1, 5, 64, 64, 64),
+    (2, 8, 3, 128, 64, 128),
+    (1, 64, 2, 128, 128, 256),
+    (3, 8, 1, 256, 64, 128),
+    (1, 64, 3, 128, 64, 128),
+]
+SSD_TC_PATH = (2, 64, 32, 128, 64, 128)    # mamba2-1.3b forward, B 2 x 4096
+SSD_TC_TOL = 1e-4                          # of each output's largest entry
+# With the scores rounded to bf16 (the model path), kernel and plain
+# version each round their own f32 sums: where those differ in the last
+# place a score rounds to the neighbouring bf16 value, moving a y entry by
+# 2^-8 of one term (measured 1.7e-4 of the largest entry at the model's
+# shape).  Held to 2^-7 of each output's largest entry, as ops.ssd's
+# bf16-rounded states are.
+SSD_TC_ROUNDED_TOL = 2.0 ** -7
 GRANITE_LOSS_RTOL = 1e-3     # 2 layers, port on the card vs JAX on the CPU
 FULL_LOSS_RTOL = 1e-3        # pallas (f32 softmax) vs naive (bf16 p)
 # Logits, relative to the largest reference logit.  The loss of random
@@ -264,6 +308,7 @@ LOGIT_REL = 2.0 ** -5
 # logit rows: the flips compound over the layers; 2^-4.
 FULL_LOGIT_REL = 2.0 ** -4
 POSITIONS_FULL = [0, 1, 63, 64, 2047, 2048, 4000, 4095]
+POSITIONS_MAMBA = [0, 1, 127, 128, 2047, 2048, 4000, 4095]   # chunk edges
 
 
 @contextlib.contextmanager
@@ -279,45 +324,104 @@ def swapped(obj, name: str, value):
 
 
 def logits_at(model, params, tokens, positions):
-    """``lm_loss``'s logits at ``positions`` of every row: f32 [B*P, V]."""
+    """``lm_loss``'s logits at ``positions`` of every row, over the real
+    vocabulary (not the padded rows ``lm_loss`` masks with -1e30): f32
+    [B*P, vocab]."""
     from repro_torch.models import transformer as tf
     h = tf.lm_hidden(model.cfg, params, tokens, impl=model.impl)
     lg = tf.lm_logits(model.cfg, params, h[:, positions]).float()
-    return lg.reshape(-1, lg.shape[-1])
+    return lg[..., :model.cfg.vocab].reshape(-1, model.cfg.vocab)
 
 
-def planted_faults(ops, model, params, batch, positions, err_of,
-                   limit: float) -> dict:
-    """Run the forward again with a fault planted in ``ops.flash_attention``
-    (its output zeroed; the keys 128 and more behind each query dropped, as
-    a kernel that lost tiles would) and require the logit check
-    ``err_of(logits) <= limit`` to reject each.  Returns each fault's
-    logit error and loss."""
+def flash_faults(ops) -> dict:
+    """Faults in ``ops.flash_attention``: its output zeroed; the keys 128
+    and more behind each query dropped, as a kernel that lost tiles
+    would."""
     import torch
     real = ops.flash_attention
-    fakes = {
-        "output zeroed": lambda q, k, v, **kw: torch.zeros_like(q),
-        "keys 128 back dropped": lambda q, k, v, **kw: real(
-            q, k, v, causal=True, window=128),
+    return {
+        "output zeroed": (ops, "flash_attention",
+                          lambda q, k, v, **kw: torch.zeros_like(q)),
+        "keys 128 back dropped": (ops, "flash_attention",
+                                  lambda q, k, v, **kw: real(
+                                      q, k, v, causal=True, window=128)),
     }
+
+
+def ssd_faults(ssd_scan) -> dict:
+    """Faults in ``ssd_scan.ssd_intra_chunk``: ``y_diag`` zeroed; the decay
+    dropped (A = 0: L = 1 on the lower triangle, and no decay of the chunk
+    states), as a kernel that lost its decay would."""
+    import torch
+    real = ssd_scan.ssd_intra_chunk
+
+    def zeroed(*a, **kw):
+        y, st, dc = real(*a, **kw)
+        return torch.zeros_like(y), st, dc
+
+    def no_decay(x, dt, A, B, C, **kw):
+        return real(x, dt, torch.zeros_like(A), B, C, **kw)
+
+    return {"y_diag zeroed": (ssd_scan, "ssd_intra_chunk", zeroed),
+            "decay dropped": (ssd_scan, "ssd_intra_chunk", no_decay)}
+
+
+def planted_faults(faults: dict, model, params, batch, measure,
+                   limit: float) -> dict:
+    """Run the check ``measure() <= limit`` again with each fault of
+    ``faults`` (``{name: (obj, attribute, fake)}``) planted in turn, and
+    require it to reject each.  Returns each fault's error and loss."""
+    import torch
     out = {}
-    for name, fake in fakes.items():
-        with swapped(ops, "flash_attention", fake), torch.no_grad():
-            err = err_of(logits_at(model, params, batch["tokens"],
-                                   positions))
+    for name, (obj, attr, fake) in faults.items():
+        with swapped(obj, attr, fake), torch.no_grad():
+            err = measure()
             loss = float(model.loss(params, batch))
         if not err > limit:
-            raise AssertionError(f"fault '{name}' passes the logit check: "
+            raise AssertionError(f"fault '{name}' passes the check: "
                                  f"{err} <= {limit}")
-        out[name] = dict(logit_err=err, loss=loss)
+        out[name] = dict(err=err, loss=loss)
     return out
 
 
+def ssm_layer_errors(model, params, tokens) -> list:
+    """Each layer of a pure-SSM model with ``impl="pallas"`` against
+    ``impl="naive"`` on the same input: the residual stream of the naive
+    forward.  Returns each layer's max abs difference of the mixer's
+    output over naive's largest entry."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import norm
+    cfg = model.cfg
+    x = tf.embed(params["embed"], tokens).to(torch.bfloat16)
+    errs = []
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lp = tf.layer_params(params["layers"], i)
+            h = norm(x, lp["ln1"], cfg.norm)
+            want, _ = ssm.ssm_forward(h, lp["ssm"], cfg, impl="naive")
+            got, _ = ssm.ssm_forward(h, lp["ssm"], cfg, impl="pallas")
+            want = want.float()
+            errs.append(float((got.float() - want).abs().max()
+                              / want.abs().max()))
+            x = x + want.to(x.dtype)
+    return errs
+
+
+def expect_counts(tag: str, got: dict, want: dict) -> None:
+    """Every count as ``want`` says, every other count 0."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{tag} launched {got}, want {full}")
+
+
 def counts(kmods) -> dict:
-    """Every kernel's launch count; ``flash_attention`` counts both flash
-    routes, ``flash_attention_tc`` the tensor-core route alone."""
+    """Every kernel's launch count; ``flash_attention`` and ``ssd_scan``
+    count both of their routes, ``*_tc`` the tensor-core route alone."""
     out = {k: m.launches for k, m in kmods.items()}
     out["flash_attention_tc"] = kmods["flash_attention"].tc_launches
+    out["ssd_scan_tc"] = kmods["ssd_scan"].tc_launches
     return out
 
 
@@ -327,6 +431,7 @@ def zero(kmods) -> None:
     for m in kmods.values():
         m.launches = 0
     kmods["flash_attention"].tc_launches = 0
+    kmods["ssd_scan"].tc_launches = 0
 
 
 def build_report(_build, logs: dict) -> None:
@@ -345,14 +450,19 @@ def build_report(_build, logs: dict) -> None:
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "C7508")):
                 say("build", f"{k} {entry}: {line.strip()}")
-        if k == "flash_attention_tc" and ("C7508" in log or re.search(
-                r"[1-9]\d* bytes spill", log)):
-            raise AssertionError(f"flash_attention_tc: ptxas spills or "
-                                 f"ignores setmaxnreg:\n{log}")
+        if k in ("flash_attention_tc", "ssd_scan_tc") and (
+                "C7508" in log or re.search(r"[1-9]\d* bytes spill", log)):
+            raise AssertionError(f"{k}: ptxas spills or ignores "
+                                 f"setmaxnreg:\n{log}")
     fn = _build.load("flash_attention_tc").flash_attention_tc_smem
     fn.argtypes, fn.restype = [ctypes.c_int64], ctypes.c_int
     say("build", "flash_attention_tc dynamic shared memory (bytes by head "
         f"dim): {json.dumps({hd: fn(hd) for hd in (64, 128, 192, 256)})}")
+    from repro_torch.kernels import ssd_scan
+    shapes = sorted({c[3:] for c in SSD_TC_CASES} | {SSD_TC_PATH[3:]})
+    say("build", "ssd_scan_tc dynamic shared memory (bytes by Q, P, N): "
+        + json.dumps({str(q): ssd_scan.smem_bytes("tensor_core", *q)
+                      for q in shapes}))
 
 
 def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
@@ -485,7 +595,9 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
     return tuple(entries)
 
 
-def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
+def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
+    """Returns the closing line's entries of the tensor-core kernel and of
+    the CUDA-core kernel."""
     import torch
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -498,13 +610,24 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
                 rnd(BH, c, Q, N).to(dt[dtype]),
                 rnd(BH, c, Q, N).to(dt[dtype]))
 
-    def check(tag, args, tol, scaled=False):
+    def check(tag, args, tol, scaled=False, heads=1, round_scores=False):
         """Elementwise ``tol + tol * |want|``; ``scaled``: ``tol`` of each
         output's largest entry (large cells: the f32 error of sums of
-        Q * N products grows with the outputs' size, not each entry's)."""
-        got = ssd_scan.ssd_intra_chunk(*args)
-        want = ref.ssd_intra_chunk_ref(*args)
+        Q * N products grows with the outputs' size, not each entry's).
+        The launch must move the count of the route ``route`` names, and
+        only that."""
+        name = ssd_scan.route(tuple(t.dtype for t in args), *args[0].shape[2:],
+                              args[3].shape[-1])
+        before = (ssd_scan.launches, ssd_scan.tc_launches)
+        got = ssd_scan.ssd_intra_chunk(*args, heads=heads,
+                                       round_scores=round_scores)
+        want = plain(*args, heads=heads, round_scores=round_scores)
         torch.cuda.synchronize()
+        moved = (ssd_scan.launches - before[0],
+                 ssd_scan.tc_launches - before[1])
+        if moved != (1, int(name == "tensor_core")):
+            raise AssertionError(f"ssd {tag}: route {name}, counts moved "
+                                 f"by {moved}")
         err = 0.0
         for g, w in zip(got, want):
             d = (g - w).abs()
@@ -515,11 +638,21 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
                                      f"{float(d.max())} beyond tol {tol}")
         return err
 
+    def plain(x, dt, A, B, C, heads=1, round_scores=False):
+        """The plain version of ``ssd_intra_chunk(..., heads=heads)``:
+        B and C expanded per head, then ``ref.ssd_intra_chunk_ref``."""
+        return ref.ssd_intra_chunk_ref(x, dt, A,
+                                       B.repeat_interleave(heads, 0),
+                                       C.repeat_interleave(heads, 0),
+                                       round_scores=round_scores)
+
     for i, (BH, c, Q, P, N, dtype, tol) in enumerate(SSD_CASES):
-        err = check(f"test {i}", cell_inputs(BH, c, Q, P, N, dtype), tol)
-        say("ssd", json.dumps(dict(case=f"test {i}", BH=BH, c=c, Q=Q, P=P,
-                                   N=N, dtype=dtype, max_abs_err=err,
-                                   tol=tol)))
+        args = cell_inputs(BH, c, Q, P, N, dtype)
+        err = check(f"test {i}", args, tol)
+        say("ssd", json.dumps(dict(
+            case=f"test {i}", route=ssd_scan.route(
+                tuple(t.dtype for t in args), Q, P, N), BH=BH, c=c, Q=Q,
+            P=P, N=N, dtype=dtype, max_abs_err=err, tol=tol)))
 
     m = MAMBA
     b, l, h, p, n, Q = m["b"], m["l"], m["h"], m["p"], m["n"], m["chunk"]
@@ -532,8 +665,10 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
     y, st = ops.ssd(x, dtv, A, B, C, chunk=Q)
     torch.cuda.synchronize()
     path = counts(kmods)
-    if path["ssd_scan"] != 1 or path["flash_attention"] or path["rmsnorm"]:
-        raise AssertionError(f"ops.ssd launched {path}, want one ssd launch")
+    if path["ssd_scan"] != 1 or path["ssd_scan_tc"] \
+            or path["flash_attention"] or path["rmsnorm"]:
+        raise AssertionError(f"ops.ssd launched {path}, want one CUDA-core "
+                             "ssd launch")
     # ops.ssd rounds the chunk states to bf16 (as the reference does), so
     # f32 differences of the two intra-chunk versions can flip a rounding:
     # one bf16 ulp of a state entry, carried on.  Held to 2^-7 of each
@@ -558,7 +693,8 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + 4 * cells * (Q * p + p * n + 1)
     bound_ms, bound_by = bound(nbytes, flops, H100_F32_FLOPS)
-    rec = dict(case="mamba2-1.3b cell", BH=b * h, c=c, Q=Q, P=p, N=n,
+    rec = dict(case="mamba2-1.3b f32 cell", route="cuda_core", BH=b * h,
+               c=c, Q=Q, P=p, N=n,
                dtype="float32", max_abs_err=err, bound_ms=bound_ms,
                bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
                ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*args)),
@@ -571,27 +707,89 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> dict:
         rec["ops_ssd_plain_ms"] = time_ms(
             lambda: ops.ssd(x, dtv, A, B, C, chunk=Q), iters=5)
     say("ssd", json.dumps(rec))
-    return dict(name="ssd_intra_chunk", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:56",
-                launches=path["ssd_scan"], max_abs_err=err, ms=rec["ms"],
-                plain_ms=rec["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None,
-                shape=[b * h, c, Q, p, n], dtype="float32")
+    cuda_core = dict(
+        name="ssd_intra_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56",
+        launches=path["ssd_scan"], path="ops.ssd, f32 at mamba2-1.3b's "
+        "shape (1 per call)", max_abs_err=err, ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=[b * h, c, Q, p, n], dtype="float32")
+
+    # the tensor-core kernel: bf16 x, B, C by group, f32 dt and A
+    def tc_inputs(G, heads, c, Q, P, N):
+        x, dt_, A_, B_, C_ = cell_inputs(G * heads, c, Q, P, N, "bfloat16")
+        return (x, dt_, A_, B_[:G].contiguous(), C_[:G].contiguous())
+
+    for G, heads, c, Q, P, N in SSD_TC_CASES:
+        args = tc_inputs(G, heads, c, Q, P, N)
+        tag = f"tc G{G} heads{heads} c{c} Q{Q} P{P} N{N}"
+        if ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) \
+                != "tensor_core":
+            raise AssertionError(f"ssd {tag}: not on the tensor-core route")
+        err = check(tag, args, SSD_TC_TOL, scaled=True, heads=heads)
+        say("ssd", json.dumps(dict(case=tag, route="tensor_core", BH=G * heads,
+                                   c=c, Q=Q, P=P, N=N, heads=heads,
+                                   dtype="bfloat16", max_abs_err=err,
+                                   tol=f"{SSD_TC_TOL} x max|want|")))
+    # the model's shape, in the Pallas kernel's arithmetic (f32 scores)
+    # and in the model path's (scores rounded to bf16, as the reference's)
+    G, heads, c, Q, P, N = SSD_TC_PATH
+    args = tc_inputs(G, heads, c, Q, P, N)
+    err_f32 = check("mamba2-1.3b forward cell, f32 scores", args, SSD_TC_TOL,
+                    scaled=True, heads=heads)
+    err = check("mamba2-1.3b forward cell", args, SSD_TC_ROUNDED_TOL,
+                scaled=True, heads=heads, round_scores=True)
+    cells = G * heads * c
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * cells * (tri * N + tri * P + Q * P * N)
+    # each input read once at its dtype (B and C once per group), each
+    # output written once
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + 4 * cells * (Q * P + P * N + 1)
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    outs = [torch.empty((cells // c, c, Q, P), device=dev),
+            torch.empty((cells // c, c, P, N), device=dev),
+            torch.empty((cells // c, c), device=dev)]
+    kw = dict(heads=heads, round_scores=True)
+    rec = dict(case="mamba2-1.3b forward cell", route="tensor_core",
+               BH=G * heads, c=c, Q=Q, P=P, N=N, heads=heads,
+               dtype="bfloat16", round_scores=True, max_abs_err=err,
+               max_abs_err_f32_scores=err_f32, bound_ms=bound_ms,
+               bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+               ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*args, **kw)),
+               cuda_core_ms=time_ms(lambda: ssd_scan.launch_route(
+                   "cuda_core", *args, *outs, **kw), iters=5),
+               plain_ms=time_ms(lambda: plain(*args, **kw), iters=5),
+               power=nvidia_smi())
+    rec["tflops"] = flops / rec["ms"] / 1e9
+    rec["share_of_bound"] = bound_ms / rec["ms"]
+    say("ssd", json.dumps(rec))
+    tc = dict(name="ssd_intra_chunk_tc", route="cuda",
+              source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+              replaces="src/repro/kernels/ssd_scan.py:56",
+              launches=None, max_abs_err=err, ms=rec["ms"],
+              plain_ms=rec["plain_ms"], bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=None,
+              cuda_core_ms=rec["cuda_core_ms"], shape=[G * heads, c, Q, P, N],
+              heads=heads, dtype="bfloat16")
+    return tc, cuda_core
 
 
-def phase_granite_reference(dev, kmods) -> dict:
-    """granite-8b, full width, 2 layers, vs the JAX package's fixture."""
+def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
+                    faults: dict) -> dict:
+    """A model at full width and 2 layers vs the JAX package's fixture;
+    ``Model.loss`` must launch the tensor-core kernel ``kernel`` once per
+    layer and nothing else."""
     import numpy as np
     import torch
     from repro_torch import carry
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Engine, Request
 
-    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
-                     "granite8b_2l_reference.json").read_text())
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" / fixture)
+                    .read_text())
     cfg = get_config(fx["arch"]).scaled(n_layers=fx["n_layers"])
     params = carry.params_from_jax(
         carry.numpy_params(cfg, fx["weights_seed"]), device=dev)
@@ -603,10 +801,8 @@ def phase_granite_reference(dev, kmods) -> dict:
     with torch.no_grad():
         loss = float(model.loss(params, batch))
     path = counts(kmods)
-    if path["flash_attention"] != cfg.n_layers \
-            or path["flash_attention_tc"] != cfg.n_layers:
-        raise AssertionError(f"Model.loss launched {path}, want "
-                             f"{cfg.n_layers} tensor-core flash launches")
+    expect_counts(f"{tag} Model.loss", path,
+                  {kernel: cfg.n_layers, kernel[:-3]: cfg.n_layers})
     if abs(loss - fx["loss"]) > GRANITE_LOSS_RTOL * abs(fx["loss"]):
         raise AssertionError(f"2-layer loss {loss} vs reference "
                              f"{fx['loss']} (rel tol {GRANITE_LOSS_RTOL})")
@@ -629,8 +825,10 @@ def phase_granite_reference(dev, kmods) -> dict:
                                   for a, ids in zip(top1, fids.tolist())):
         raise AssertionError(f"2-layer forward logits vs reference: rel err "
                              f"{fwd_err} (tol {LOGIT_REL}), argmax {top1}")
-    faults = planted_faults(ops, model, params, batch, f["positions"],
-                            fixture_err, LOGIT_REL)
+    faults = planted_faults(
+        faults, model, params, batch,
+        lambda: fixture_err(logits_at(model, params, batch["tokens"],
+                                      f["positions"])), LOGIT_REL)
 
     g = fx["greedy"]
     # teacher-forced on the reference's tick inputs
@@ -686,28 +884,41 @@ def phase_granite_reference(dev, kmods) -> dict:
             compared += 1
     res = dict(loss=loss, loss_ref=fx["loss"],
                loss_rel_err=abs(loss - fx["loss"]) / abs(fx["loss"]),
-               flash_launches_per_loss=path["flash_attention"],
+               launches_per_loss=path,
                forward_top5_rel_err=fwd_err, planted_faults=faults,
                top5_worst_rel_err=worst, greedy_tokens_compared=compared,
                greedy_tokens_total=sum(len(o) for o in g["outputs"]),
                possible_flips=sum(ties.values()), outputs=[r.out for r in reqs],
                engine_launches=serve_path)
-    say("granite-2l", json.dumps(res))
+    say(tag, json.dumps(res))
     del params, cache
     torch.cuda.empty_cache()
     return res
 
 
-def phase_granite_full(dev, kmods, smi) -> dict:
-    """granite-8b at full size: the forward with the kernel, and serving."""
+def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
+               faults: dict, positions, forced=None,
+               by_layer: bool = False) -> dict:
+    """A model at full size: the forward with the kernel (the tensor-core
+    kernel ``kernel`` once per layer, nothing else) against
+    ``impl="naive"``, and serving.  ``forced``: ``(label, obj, attribute,
+    fn)``, a second timing of the forward with ``fn`` in place of
+    ``obj.attribute`` (another route of the kernel).
+
+    The check, and the faults it must reject: whole logit rows at
+    ``positions`` within ``FULL_LOGIT_REL``; with ``by_layer`` (a pure-SSM
+    model, whose random-weight logits move by their whole scale after 48
+    layers for a one-ulp change of one input, measured here as
+    ``sensitivity``) each layer's output on naive's residual stream
+    within ``LOGIT_REL`` (``ssm_layer_errors``), the logit rows reported
+    beside it."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.serve.sampler import SamplerConfig
 
-    cfg = get_config("granite-8b")
+    cfg = get_config(arch)
     model = Model(cfg, impl="pallas")
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
@@ -726,40 +937,77 @@ def phase_granite_full(dev, kmods, smi) -> dict:
         loss_p = float(model.loss(params, batch))
         t_fwd = time.perf_counter() - t
         path = counts(kmods)
-        if path["flash_attention"] != cfg.n_layers \
-                or path["flash_attention_tc"] != cfg.n_layers \
-                or path["ssd_scan"] or path["rmsnorm"]:
-            raise AssertionError(f"full forward launched {path}, want "
-                                 f"{cfg.n_layers} tensor-core flash "
-                                 "launches")
+        expect_counts(f"{tag} forward", path,
+                      {kernel: cfg.n_layers, kernel[:-3]: cfg.n_layers})
         peak_fwd = torch.cuda.max_memory_allocated(dev)
+        forced_s = None
+        if forced is not None:
+            label, obj, attr, fn = forced
+            with swapped(obj, attr, fn):
+                t = time.perf_counter()
+                float(model.loss(params, batch))
+                forced_s = time.perf_counter() - t
+            # and the kernel's route again: kernel, forced, kernel
+            t = time.perf_counter()
+            float(model.loss(params, batch))
+            t_fwd2 = time.perf_counter() - t
         naive = Model(cfg, impl="naive")
         t = time.perf_counter()
         loss_n = float(naive.loss(params, batch))
         t_naive = time.perf_counter() - t
-        lg_p = logits_at(model, params, batch["tokens"], POSITIONS_FULL)
-        lg_n = logits_at(naive, params, batch["tokens"], POSITIONS_FULL)
+        lg_p = logits_at(model, params, batch["tokens"], positions)
+        lg_n = logits_at(naive, params, batch["tokens"], positions)
     if not (abs(loss_p - loss_n) <= FULL_LOSS_RTOL * abs(loss_n)
             and math.isfinite(loss_p)):
-        raise AssertionError(f"36-layer loss: pallas {loss_p} vs naive "
+        raise AssertionError(f"{tag} loss: pallas {loss_p} vs naive "
                              f"{loss_n} (rel tol {FULL_LOSS_RTOL})")
 
     def naive_err(lg) -> float:
         return float((lg - lg_n).abs().max() / lg_n.abs().max())
 
     logit_err = naive_err(lg_p)
-    if not logit_err <= FULL_LOGIT_REL:
-        raise AssertionError(f"36-layer logits: pallas vs naive rel err "
-                             f"{logit_err} (tol {FULL_LOGIT_REL})")
-    faults = planted_faults(ops, model, params, batch, POSITIONS_FULL,
-                            naive_err, FULL_LOGIT_REL)
+    extra = {}
+    if by_layer:
+        from repro_torch.models import transformer as tf
+        real_embed = tf.embed
+
+        def nudged(emb, tokens):
+            """The embedding with one entry moved by one bf16 ulp."""
+            x = real_embed(emb, tokens).clone()
+            x[0, 0, 0] = x[0, 0, 0] * (1 + 2.0 ** -7)
+            return x
+
+        with swapped(tf, "embed", nudged), torch.no_grad():
+            extra["sensitivity"] = naive_err(logits_at(
+                naive, params, batch["tokens"], positions))
+        errs = ssm_layer_errors(model, params, batch["tokens"])
+        extra["layer_errs"] = errs
+        err, limit = max(errs), LOGIT_REL
+
+        def measure():
+            return max(ssm_layer_errors(model, params, batch["tokens"]))
+    else:
+        err, limit = logit_err, FULL_LOGIT_REL
+
+        def measure():
+            return naive_err(logits_at(model, params, batch["tokens"],
+                                       positions))
+    if not err <= limit:
+        raise AssertionError(f"{tag}: pallas vs naive rel err {err} (tol "
+                             f"{limit}, {'by layer' if by_layer else 'logit rows'})")
+    faults = planted_faults(faults, model, params, batch, measure, limit)
     fwd = dict(n_params=n_params, init_s=t_init, loss_pallas=loss_p,
                loss_naive=loss_n, rel_diff=abs(loss_p - loss_n) / loss_n,
                logit_rel_err=logit_err, planted_faults=faults,
                forward_s=t_fwd, forward_tokens_per_s=B * S / t_fwd,
-               naive_forward_s=t_naive, flash_launches=path,
-               peak_gib=peak_fwd / 2**30, power=smi)
-    say("granite-full", json.dumps(fwd))
+               naive_forward_s=t_naive, launches=path,
+               peak_gib=peak_fwd / 2**30, power=smi, **extra)
+    if forced is not None:
+        fwd.update({f"forward_s_{forced[0]}": forced_s,
+                    f"forward_tokens_per_s_{forced[0]}": B * S / forced_s,
+                    "forward_s_again": t_fwd2,
+                    "forward_tokens_per_s_again": B * S / t_fwd2})
+    say(f"{tag}-full", json.dumps(fwd))
 
     torch.cuda.reset_peak_memory_stats(dev)
     zero(kmods)
@@ -779,7 +1027,7 @@ def phase_granite_full(dev, kmods, smi) -> dict:
                kernel_launches=serve_path,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                power=nvidia_smi())
-    say("granite-serve", json.dumps(out))
+    say(f"{tag}-serve", json.dumps(out))
     del params
     torch.cuda.empty_cache()
     return dict(forward=fwd, serve=out)
@@ -868,18 +1116,43 @@ def main() -> int:
         raise AssertionError(f"unexpected kernel launches: {sim_launches}")
 
     flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
-    ssd = phase_ssd(dev, ssd_scan, ops, ref, kmods)
-    phase_granite_reference(dev, kmods)
-    full = phase_granite_full(dev, kmods, smi)
+    ssd_tc, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
+    phase_reference(dev, kmods, "granite-2l", "granite8b_2l_reference.json",
+                    "flash_attention_tc", flash_faults(ops))
+    full = phase_full(dev, kmods, smi, "granite", "granite-8b",
+                      "flash_attention_tc", flash_faults(ops),
+                      POSITIONS_FULL)
     # the main path's launches: the 36-layer forward of phase 9
-    path = full["forward"]["flash_launches"]
+    path = full["forward"]["launches"]
     flash_tc.update(launches=path["flash_attention_tc"],
                     launches_all_routes=path["flash_attention"],
                     path="granite-8b forward, 36 layers (phase 9)")
 
+    phase_reference(dev, kmods, "mamba2-2l", "mamba2_2l_reference.json",
+                    "ssd_scan_tc", ssd_faults(ssd_scan))
+
+    def cuda_core_ssd(x, dt, A, B, C, **kw):
+        """The CUDA-core SSD kernel through its own entry point."""
+        BH, c, Q, P = x.shape
+        outs = (torch.empty((BH, c, Q, P), device=dev),
+                torch.empty((BH, c, P, B.shape[-1]), device=dev),
+                torch.empty((BH, c), device=dev))
+        ssd_scan.launch_route("cuda_core", x, dt, A, B, C, *outs, **kw)
+        return outs
+
+    full = phase_full(dev, kmods, smi, "mamba2", "mamba2-1.3b",
+                      "ssd_scan_tc", ssd_faults(ssd_scan), POSITIONS_MAMBA,
+                      forced=("cuda_core_ssd", ssd_scan, "ssd_intra_chunk",
+                              cuda_core_ssd), by_layer=True)
+    # the main path's launches: the 48-layer forward of phase 11
+    path = full["forward"]["launches"]
+    ssd_tc.update(launches=path["ssd_scan_tc"],
+                  launches_all_routes=path["ssd_scan"],
+                  path="mamba2-1.3b forward, 48 layers (phase 11)")
+
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd]}),
-          flush=True)
+    print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc,
+                                  ssd_cc]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,22 +48,30 @@ def state_to_numpy(st) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in st._asdict().items()}
 
 
-def _leaf_to_torch(a: np.ndarray, dev) -> torch.Tensor:
+def _leaf_to_torch(a: np.ndarray, dev, f32: bool) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":              # ml_dtypes' bf16, from JAX
         t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
-        return t.view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.array(a, copy=True)).to(dev, torch.bfloat16)
+        t = t.view(torch.bfloat16)
+        return t.to(dev, torch.float32) if f32 else t.to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        dev, torch.float32 if f32 else torch.bfloat16)
 
 
-def params_from_jax(tree: dict, device=None) -> dict:
+def params_from_jax(tree: dict, device=None, _path: str = "") -> dict:
     """The reference's parameter tree (a nested dict whose leaves are numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the port's bf16
-    parameters (the reference's ``param_dtype``) on ``device``.  bf16
-    leaves keep their bits; other leaves are rounded to bf16."""
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) -> the port's
+    parameters on ``device``: bf16 (the reference's ``param_dtype``), but
+    f32 for the leaves the reference declares f32 whatever that dtype
+    (the SSM's ``a_log``, ``dt_bias``, ``d_skip``).  bf16 leaves keep their
+    bits; other leaves are rounded to bf16, or kept f32."""
     dev = _device.resolve(device)
-    return {k: params_from_jax(v, device=dev) if isinstance(v, dict)
-            else _leaf_to_torch(v, dev) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        path = f"{_path}[{k!r}]"
+        out[k] = params_from_jax(v, dev, path) if isinstance(v, dict) \
+            else _leaf_to_torch(v, dev, tf.is_f32_leaf(path))
+    return out
 
 
 def round_bf16(a: np.ndarray) -> np.ndarray:
@@ -79,15 +87,20 @@ def numpy_params(cfg, seed: int) -> dict:
     """A parameter tree for ``cfg`` from ``np.random.default_rng(seed)``
     with the distributions of the reference's ``init_params``: norm
     weights 1, biases 0, matrices N(0, 1) * fan_in^-0.5 in f32, rounded to
-    bf16 (ties to even).  Leaves are f32 arrays whose values are bf16
-    values, so either package casts them to bf16 exactly; the leaves are
-    drawn in JAX's flattening order."""
+    bf16 (ties to even); the SSM's ``a_log`` = log U(1, 16), ``dt_bias`` 0,
+    ``d_skip`` 1.  Leaves are f32 arrays.  Those the reference keeps in f32
+    (``tf.is_f32_leaf``) are not rounded; the others hold bf16 values, so
+    either package casts them to bf16 exactly.  The leaves are drawn in
+    JAX's flattening order."""
     rng = np.random.default_rng(seed)
     out = []
     for name, shape in tf.leaves(tf.param_shapes(cfg)):
         kind, val = tf.init_rule(name, shape)
         if kind == "fill":
             out.append((name, np.full(shape, val, np.float32)))
+        elif kind == "log_uniform":
+            out.append((name, np.log(rng.uniform(*val, shape))
+                        .astype(np.float32)))
         else:
             a = rng.standard_normal(shape, dtype=np.float32)
             a *= np.float32(val)

@@ -23,7 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"rmsnorm": "rmsnorm.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_tc": "flash_attention_tc.cu",
-           "ssd_scan": "ssd_scan.cu"}
+           "ssd_scan": "ssd_scan.cu",
+           "ssd_scan_tc": "ssd_scan_tc.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -11,7 +11,8 @@
 //   decay      = exp(acum[Q-1])
 //
 // Inputs x, dt, A, B, C may each be f32 or bf16 (each is widened to f32 as
-// it is read); the three outputs are f32.
+// it is read); the three outputs are f32.  Flag bit 5 rounds C_q . B_k to
+// bf16 before the decay, as the model's ssd_chunked rounds its scores.
 //
 // Bound: about even.  At mamba2-1.3b's shape (BH 64, 32 chunks of Q 128,
 // P 64, N 128) the cell reads and writes ~0.47 GB (x, B, C, y, state in
@@ -40,7 +41,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int W_ELEMS = 2048;           // floats in the W row buffer
 
-// dtype flags: bit 0 x, bit 1 dt, bit 2 A, bit 3 B, bit 4 C (1 = bf16)
+// dtype flags: bit 0 x, bit 1 dt, bit 2 A, bit 3 B, bit 4 C (1 = bf16);
+// bit 5: round the scores C_q . B_k to bf16
 __device__ __forceinline__ float ld(const void* p, bool bf16, int64_t i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
@@ -120,6 +122,7 @@ __global__ void __launch_bounds__(THREADS)
         const float* br = Bs + kj * LDB;
         float dot = 0.f;
         for (int n = 0; n < N; ++n) dot = fmaf(cr[n], br[n], dot);
+        if (flags & 32) dot = __bfloat162float(__float2bfloat16_rn(dot));
         w = dot * expf(acum[qi] - acum[kj]) * dts[kj];
       }
       Ws[i] = w;

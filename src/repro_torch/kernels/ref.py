@@ -43,8 +43,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                        B: torch.Tensor, C: torch.Tensor):
-    """Mamba2 SSD intra-chunk block, all in f32.
+                        B: torch.Tensor, C: torch.Tensor, *,
+                        round_scores: bool = False):
+    """Mamba2 SSD intra-chunk block, all in f32 (``round_scores``: the
+    scores C B^T rounded to bf16, as the model's ``ssd_chunked`` rounds
+    them for bf16 B and C).
 
     x: [BH, c, Q, P]; dt: [BH, c, Q]; A: [BH]; B, C: [BH, c, Q, N].
     Returns (y_diag [BH,c,Q,P], states [BH,c,P,N], chunk_decay [BH,c]).
@@ -57,6 +60,8 @@ def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     L = torch.where(tril, torch.exp(diff), 0.0)      # [BH, c, Q, Q]
     scores = torch.einsum("bcqn,bckn->bcqk", C, B)
+    if round_scores:
+        scores = scores.to(torch.bfloat16).float()
     w = scores * L * dt[..., None, :]
     y = torch.einsum("bcqk,bckp->bcqp", w, x)
     decay_to_end = torch.exp(acum[..., -1:] - acum)

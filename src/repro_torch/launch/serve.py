@@ -6,8 +6,8 @@ Usage (on the card; ``--device cpu`` runs it on the CPU):
       --smoke --requests 8 --max-new 16
 
 The default ``--arch`` is granite-8b, not the reference's hymba-1.5b:
-the port has the dense family only so far (the hybrid family waits for
-``models/ssm.py``, ROADMAP A9).
+the port has the dense and pure-SSM families (``--arch mamba2-1.3b``) so
+far; the hybrid family waits for its layer (ROADMAP A9).
 """
 from __future__ import annotations
 

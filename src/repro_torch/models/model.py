@@ -23,7 +23,9 @@ from repro_torch.models import transformer as tf
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    impl: str = "blockwise"       # attention inner: naive|blockwise|pallas
+    # attention inner and the SSM's intra-chunk block: naive|blockwise
+    # (plain torch) or pallas (the kernels of ``repro_torch.kernels``)
+    impl: str = "blockwise"
     xent_chunk: int = 512
     param_dtype: Any = torch.bfloat16
 

@@ -1,11 +1,11 @@
-"""Model assembly for the dense decoder-only LMs, in plain torch.
+"""Model assembly for the decoder-only LMs, in plain torch.
 
-Port of ``repro/models/transformer.py`` for the ``dense`` family: the
-parameters keep the reference's tree (a nested dict with the layers
-stacked on a leading axis), and a Python loop over the layers takes the
-place of ``lax.scan``.  The other families raise ``NotImplementedError``
-naming their ROADMAP item.  No rematerialisation: the forward needs none,
-and training is a later slice.
+Port of ``repro/models/transformer.py`` for the ``dense`` and ``ssm``
+(pure Mamba2) families: the parameters keep the reference's tree (a
+nested dict with the layers stacked on a leading axis), and a Python loop
+over the layers takes the place of ``lax.scan``.  The other families
+raise ``NotImplementedError`` naming their ROADMAP item.  No
+rematerialisation: the forward needs none, and training is a later slice.
 """
 from __future__ import annotations
 
@@ -14,20 +14,21 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (chunked_xent, glu_mlp, mlp_shapes,
                                        norm, norm_shapes)
 
+PORTED = ("dense", "ssm")
 _NOT_PORTED = {
     "moe": "ROADMAP A9: models/moe.py",
-    "ssm": "ROADMAP A9: models/ssm.py",
-    "hybrid": "ROADMAP A9: models/ssm.py and the hybrid layer",
+    "hybrid": "ROADMAP A9: the hybrid layer",
     "encdec": "ROADMAP A9: the encoder-decoder family",
     "vlm": "ROADMAP A9: the VLM family",
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"({_NOT_PORTED.get(cfg.family, 'ROADMAP A9')})")
@@ -44,13 +45,18 @@ def _stacked(tree: dict, n: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree as shapes (the reference's ``param_specs``)."""
-    require_dense(cfg)
+    require_ported(cfg)
     d = cfg.d_model
-    layer = {"ln1": norm_shapes(d, cfg.norm),
-             "attn": attn_mod.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads,
-                                          cfg.hd),
-             "ffn": mlp_shapes(d, cfg.d_ff, cfg.mlp_gated),
-             "ln2": norm_shapes(d, cfg.norm)}
+    layer = {"ln1": norm_shapes(d, cfg.norm)}
+    if cfg.has_attention:
+        layer["attn"] = attn_mod.attn_shapes(d, cfg.n_heads, cfg.n_kv_heads,
+                                             cfg.hd)
+    if cfg.has_ssm:
+        layer["ssm"] = ssm_mod.ssm_shapes(cfg)
+        layer["ln_ssm"] = norm_shapes(d, cfg.norm)      # unused by pure SSM
+    if cfg.family != "ssm":                             # mamba2: no FFN
+        layer["ffn"] = mlp_shapes(d, cfg.d_ff, cfg.mlp_gated)
+        layer["ln2"] = norm_shapes(d, cfg.norm)
     shapes = {"embed": (cfg.vocab_padded, d),
               "ln_f": norm_shapes(d, cfg.norm),
               "layers": _stacked(layer, cfg.n_layers)}
@@ -82,10 +88,22 @@ def unflatten(pairs) -> dict:
     return out
 
 
+def is_f32_leaf(name: str) -> bool:
+    """Whether the reference declares the leaf f32 whatever the model's
+    dtype (``ssm.F32_LEAVES``)."""
+    return any(f"[{k!r}]" in name for k in ssm_mod.F32_LEAVES)
+
+
 def init_rule(name: str, shape: tuple):
-    """The reference's ``init_params`` rule for one leaf: ``("fill", v)`` or
-    ``("normal", std)`` (dense leaves only: no SSM parameters)."""
-    if "'w'" in name or name.endswith("'b']"):
+    """The reference's ``init_params`` rule for one leaf: ``("fill", v)``,
+    ``("normal", std)`` or ``("log_uniform", (lo, hi))`` (``a_log``: the
+    log of U(lo, hi), in f32)."""
+    if "a_log" in name:
+        return "log_uniform", (1.0, 16.0)
+    if "dt_bias" in name:
+        return "fill", 0.0
+    if "d_skip" in name or "'w'" in name or "norm_w" in name \
+            or name.endswith("'b']"):
         return "fill", (0.0 if name.endswith("'b']") else 1.0)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     return "normal", fan_in ** -0.5
@@ -94,18 +112,25 @@ def init_rule(name: str, shape: tuple):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Random init with the reference's distributions: norm weights 1,
-    biases 0, every matrix N(0, 1) * fan_in^-0.5 drawn in f32 and cast.
-    ``generator`` must live on ``device``; the numbers differ from JAX's
-    (see ``carry.numpy_params`` for weights both packages can share)."""
+    biases 0, every matrix N(0, 1) * fan_in^-0.5 drawn in f32 and cast;
+    the SSM's ``a_log`` = log U(1, 16), ``dt_bias`` 0 and ``d_skip`` 1,
+    kept f32.  ``generator`` must live on ``device``; the numbers differ
+    from JAX's (see ``carry.numpy_params`` for weights both packages can
+    share)."""
     dev = _device.resolve(device)
     out = []
     for name, shape in leaves(param_shapes(cfg)):
         kind, val = init_rule(name, shape)
+        dt = torch.float32 if is_f32_leaf(name) else dtype
         if kind == "fill":
-            t = torch.full(shape, val, dtype=dtype, device=dev)
+            t = torch.full(shape, val, dtype=dt, device=dev)
+        elif kind == "log_uniform":
+            lo, hi = val
+            t = torch.log(lo + (hi - lo) * torch.rand(
+                shape, generator=generator, dtype=torch.float32, device=dev))
         else:
             t = (torch.randn(shape, generator=generator, dtype=torch.float32,
-                             device=dev) * val).to(dtype)
+                             device=dev) * val).to(dt)
         out.append((name, t))
     return unflatten(out)
 
@@ -130,11 +155,17 @@ def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl):
     h = norm(x, lp["ln1"], cfg.norm)
-    a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
-                              causal=causal, impl=impl)
-    x = x + a
-    h = norm(x, lp["ln2"], cfg.norm)
-    return x + glu_mlp(h, lp["ffn"], cfg.act)
+    if cfg.has_attention:
+        a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
+                                  causal=causal, impl=impl)
+        x = x + a
+    else:                                             # pure SSM
+        s, _ = ssm_mod.ssm_forward(h, lp["ssm"], cfg, impl=impl)
+        x = x + s
+    if "ffn" in lp:
+        h = norm(x, lp["ln2"], cfg.norm)
+        x = x + glu_mlp(h, lp["ffn"], cfg.act)
+    return x
 
 
 def backbone(cfg: ModelConfig, params, x, *, positions, causal=True,
@@ -159,7 +190,7 @@ def lm_hidden(cfg: ModelConfig, params, tokens, *,
               impl="blockwise") -> torch.Tensor:
     """The final-normed hidden states [B, S, d] whose logits ``lm_loss``
     scores."""
-    require_dense(cfg)
+    require_ported(cfg)
     x = embed(params["embed"], tokens).to(torch.bfloat16)
     positions = torch.arange(x.shape[1], device=x.device)
     x = backbone(cfg, params, x, positions=positions, causal=True, impl=impl)
@@ -186,24 +217,36 @@ def lm_loss(cfg: ModelConfig, params, batch, *, impl="blockwise",
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None) -> dict:
-    """Per-layer stacked KV caches [L, batch, S, Hkv, hd], zeros; a
-    sliding-window arch keeps only ``window`` slots (a ring buffer)."""
-    require_dense(cfg)
+    """Per-layer stacked decode state, zeros: KV caches [L, batch, S, Hkv,
+    hd] in ``dtype`` (a sliding-window arch keeps only ``window`` slots, a
+    ring buffer) for attention, the SSM state [L, batch, H, P, N] in f32
+    for the SSM."""
+    require_ported(cfg)
     dev = _device.resolve(device)
-    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    kv = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.hd)
-    return {k: torch.zeros(kv, dtype=dtype, device=dev) for k in ("k", "v")}
+    out = {}
+    if cfg.has_attention:
+        S = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+            else seq_len
+        kv = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.hd)
+        out.update({k: torch.zeros(kv, dtype=dtype, device=dev)
+                    for k in ("k", "v")})
+    if cfg.has_ssm:
+        s = ssm_mod.ssm_state_shapes(cfg, batch)["ssm"]
+        out["ssm"] = torch.zeros((cfg.n_layers,) + s, dtype=torch.float32,
+                                 device=dev)
+    return out
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
                 cache_len: int):
     """One decode step: tokens [B, 1] at position ``cache_len``.
 
-    Sliding-window archs index the cache modulo the window (ring buffer).
-    Returns (logits [B, V] f32, cache); the cache is updated in place (see
-    ``attention.attention``).
+    Sliding-window archs index the cache modulo the window (ring buffer);
+    the SSM state is O(1).  Returns (logits [B, V] f32, cache); the cache
+    is updated in place (see ``attention.attention``; each layer's SSM
+    state is overwritten with its new value).
     """
-    require_dense(cfg)
+    require_ported(cfg)
     emb = params["embed"]
     x = embed(emb, tokens).to(torch.bfloat16)               # [B, 1, d]
     cache_len = int(cache_len)
@@ -220,13 +263,20 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = norm(x, lp["ln1"], cfg.norm)
-        a, _ = attn_mod.attention(
-            h, lp["attn"], cfg, positions=positions,
-            kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_slot=slot, valid_len=valid_len)
-        x = x + a
-        h = norm(x, lp["ln2"], cfg.norm)
-        x = x + glu_mlp(h, lp["ffn"], cfg.act)
+        if cfg.has_attention:
+            a, _ = attn_mod.attention(
+                h, lp["attn"], cfg, positions=positions,
+                kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
+                cache_slot=slot, valid_len=valid_len)
+            x = x + a
+        else:
+            s, new_s = ssm_mod.ssm_forward(h, lp["ssm"], cfg,
+                                           state={"ssm": cache["ssm"][i]})
+            cache["ssm"][i] = new_s["ssm"]
+            x = x + s
+        if "ffn" in lp:
+            h = norm(x, lp["ln2"], cfg.norm)
+            x = x + glu_mlp(h, lp["ffn"], cfg.act)
     x = norm(x, params["ln_f"], cfg.norm)
     unemb = params.get("unembed", emb)
     logits = (x @ unemb.T)[:, 0, :cfg.vocab]

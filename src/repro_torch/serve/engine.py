@@ -8,8 +8,11 @@ device, and every tick is one ``Model.decode`` call for all slots.
 Ticks are synchronous across slots, as in the reference: every slot's k/v
 is written at ``cache_len = pos.max()`` and roped at that position, so a
 slot refilled while another is further along writes its prompt at the
-other's position and attends over the stale cache entries before it
-(ROADMAP §C records this as a reference observation; the port keeps it).
+other's position and attends over the stale cache entries before it.
+Refilling a slot resets its position, not its SSM state: a refilled slot
+starts from the state the previous request left, and an idle slot decodes
+token 0 into its state.  (ROADMAP §C records both as reference
+observations; the port keeps them.)
 """
 from __future__ import annotations
 

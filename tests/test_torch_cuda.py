@@ -18,7 +18,14 @@ without one).  Torch only, so they also run where JAX is not installed:
 - the SSD intra-chunk kernel against its plain version at the SSD test's
   cases and tolerances (f32 1e-4, bf16 5e-2) plus mamba2-1.3b's cell
   shape, one launch per call, and ``ops.ssd`` on the card against the CPU;
-- both wrappers refuse what their kernels do not take.
+  the tensor-core SSD kernel (bf16 x, B, C, Q 64-256) at its own cases
+  (B and C by group for 1, 8 and 64 heads, ragged chunk counts, P and N
+  padded to a box) to 1e-4 of each output's largest entry, with the
+  scores rounded to bf16 to 2^-7 (one flipped rounding), each moving its
+  own launch count by one; f32
+  inputs on the CUDA-core kernel; and a 2-layer mamba2 (d 512, P 64, N
+  128, chunk 128) with ``impl="pallas"`` against ``impl="naive"``;
+- the wrappers refuse what their kernels do not take.
 """
 import numpy as np
 import pytest
@@ -358,3 +365,102 @@ def test_ssd_wrapper_refuses_unsupported_inputs(cuda):
     big = _ssd_inputs(1, 1, 512, 64, 128, torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_scan.ssd_intra_chunk(*big)
+
+
+SSD_TC_CASES = [
+    # (groups, heads, c, Q, P, N, round_scores): bf16 x, B, C
+    (3, 1, 5, 64, 64, 64, False),
+    (2, 8, 3, 128, 64, 128, False),
+    (2, 8, 3, 128, 64, 128, True),
+    (1, 64, 2, 128, 128, 256, False),
+    (3, 8, 1, 256, 64, 128, True),
+    (1, 64, 3, 128, 64, 128, True),
+    (3, 1, 2, 64, 32, 48, False),                 # P and N padded to a box
+    (1, 2, 1, 192, 80, 16, True),
+]
+
+
+def _ssd_tc_inputs(G, heads, c, Q, P, N, device, seed=1):
+    x, dt, A, B, C = _ssd_inputs(G * heads, c, Q, P, N, torch.bfloat16,
+                                 device, seed)
+    return x, dt, A, B[:G].contiguous(), C[:G].contiguous()
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_tensor_core_kernel_matches_plain_version(case, cuda):
+    G, heads, c, Q, P, N, rs = case
+    args = _ssd_tc_inputs(G, heads, c, Q, P, N, cuda)
+    assert ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) \
+        == "tensor_core"
+    before = (ssd_scan.launches, ssd_scan.tc_launches)
+    got = ssd_scan.ssd_intra_chunk(*args, heads=heads, round_scores=rs)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.tc_launches) \
+        == (before[0] + 1, before[1] + 1)
+    x, dt, A, B, C = args
+    want = ssd_intra_chunk_ref(x, dt, A, B.repeat_interleave(heads, 0),
+                               C.repeat_interleave(heads, 0),
+                               round_scores=rs)
+    # scores rounded to bf16 on both sides: a last-place difference of
+    # their f32 sums can round one score the other way (2^-8 of a term)
+    tol = 2.0 ** -7 if rs else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max())
+
+
+def test_ssd_f32_takes_cuda_core_kernel(cuda):
+    args = _ssd_inputs(2, 2, 128, 64, 128, torch.float32, cuda)
+    before = (ssd_scan.launches, ssd_scan.tc_launches)
+    got = ssd_scan.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.tc_launches) \
+        == (before[0] + 1, before[1])
+    for g, w in zip(got, ssd_intra_chunk_ref(*args)):
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+
+
+def test_ssd_tensor_core_refuses_misaligned_inputs(cuda):
+    """TMA needs 16-byte aligned, contiguous x, B, C: a view 2 bytes into
+    its storage, or a non-contiguous one, raises (no other kernel takes it
+    instead)."""
+    x, dt, A, B, C = _ssd_tc_inputs(2, 2, 1, 64, 64, 64, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xm = flat[1:].view(x.shape).copy_(x)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_scan.ssd_intra_chunk(xm, dt, A, B, C, heads=2)
+    xt = x.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_intra_chunk(xt, dt, A, B, C, heads=2)
+    assert ssd_scan.launches == before
+
+
+def test_mamba_pallas_matches_naive_on_card(cuda):
+    """2 layers at d 512 (8 heads of P 64, N 128, chunk 128): every layer
+    takes the tensor-core SSD kernel once."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cfg = get_config("mamba2-1.3b").scaled(n_layers=2, d_model=512,
+                                           vocab=4096)
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    before = (ssd_scan.launches, ssd_scan.tc_launches)
+    got = Model(cfg, impl="pallas").loss(params, batch)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.tc_launches) \
+        == (before[0] + 2, before[1] + 2)
+    want = Model(cfg, impl="naive").loss(params, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
+    lg = {impl: tf.lm_logits(cfg, params, tf.lm_hidden(
+        cfg, params, toks, impl=impl)).float()[..., :cfg.vocab].cpu().numpy()
+        for impl in ("pallas", "naive")}
+    np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
+                               atol=2.0 ** -5 * np.abs(lg["naive"]).max())
