@@ -1,9 +1,17 @@
 """Where the port's cycle step spends its time on the card.
 
-    python3 benchmarks_torch/step_profile.py [--cycles 1024]
+    python3 benchmarks_torch/step_profile.py [--cycles 1024] [--mem | --trace]
 
-Packs the fig2 grid at paper size (substrate, interposer and wireless
-4C4M, load 1.0, p_mem 0.2) as three lanes, as ``run_sweep_batched`` does,
+Packs one batch of lanes at paper size, as ``run_sweep_batched`` does:
+
+- by default the fig2 grid (substrate, interposer and wireless 4C4M, load
+  1.0, p_mem 0.2): three lanes of the open-loop program;
+- ``--mem``: fig8's 32 points (``tests/torch_fixtures/fig8_reference.json``'s
+  cases: closed-loop memory at five loads, two windows, three fabrics,
+  and canneal closed-loop), the ``mem_on`` program;
+- ``--trace``: fig7's gemma-7b one-shot trace on the wireless fabric (one
+  lane, multicast groups), the multicast program;
+
 and reports:
 
 - host ms per simulated cycle of the eager chunked driver over
@@ -35,18 +43,33 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--cycles", type=int, default=1024)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--mem", action="store_true")
+    mode.add_argument("--trace", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
     from repro_torch.core import simulator, sweep
     from repro_torch.core.constants import Fabric, SimParams
+    from benchmarks_torch import figures
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    sim = SimParams(cycles=10_000, warmup=1_000)
-    pts = [sweep.SweepPoint(4, 4, f, load=1.0, p_mem=0.2, sim=sim)
-           for f in (Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS)]
+    if args.mem:
+        fx = figures.fixture("fig8_reference.json")
+        sim = SimParams(**fx["sim"])
+        pts = [figures.fig8_point(p["case"], sim) for p in fx["points"]]
+    elif args.trace:
+        sim = SimParams(cycles=96_000, warmup=0)
+        (name, tr), = figures.fig7_traces(("gemma-7b-oneshot",))
+        pts = [figures.fig7_point(name, tr, "WIRELESS", sim)]
+    else:
+        sim = SimParams(cycles=10_000, warmup=1_000)
+        pts = [sweep.SweepPoint(4, 4, f, load=1.0, p_mem=0.2, sim=sim)
+               for f in (Fabric.SUBSTRATE, Fabric.INTERPOSER,
+                         Fabric.WIRELESS)]
     built = [sweep._build_point(p) for p in pts]
     dims = [simulator.pack_dims(topo, tt) for topo, _, tt, _ in built]
     floors = {k: max(d[k] for d in dims) for k in sweep.HARMONIZED_DIMS}
@@ -75,7 +98,10 @@ def main() -> int:
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
+    assert len({ps.shape_key() for ps in pss}) == 1, "one batch expected"
     rec = dict(
+        mode="mem" if args.mem else "trace" if args.trace else "open",
+        mem_on=pss[0].mem_on, mc_on=pss[0].mc_on,
         lanes=len(pss), B=pss[0].B, timed_cycles=args.cycles,
         host_ms_per_cycle=host_ms,
         traced_cycles=traced,

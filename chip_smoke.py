@@ -82,7 +82,35 @@ loudly:
     measures and prints, so whole logit rows are reported, not held);
     the same forward timed with the CUDA-core SSD kernel forced in
     through its own entry point; then ``launch/serve.py``'s engine
-    serving 8 requests on 4 slots (no kernel launch).
+    serving 8 requests on 4 slots (no kernel launch);
+12. fig8 at paper size: the grid of ``benchmarks/fig8_memory.py``
+    (closed-loop memory on 4C4M's three fabrics at loads 0.05-1.0 with
+    windows 4 and 16, and canneal closed-loop; 32 points, 6 000 cycles,
+    1 000 of warm-up) in one ``run_sweep_batched`` call, held against
+    ``tests/torch_fixtures/fig8_reference.json`` (every ``Metrics``
+    field: integers exact, floats rel 1e-6), with fig8's own checks (the
+    in-flight count never exceeds the window; AMAT grows with load);
+13. the closed-loop golden ``memcl_wireless_4c4m_load03`` against
+    ``tests/goldens`` (the memory fields too);
+14. fig7 at paper size: the gemma-7b one-shot and the compiled psum
+    traces of ``benchmarks/fig7_ml_traces.py`` (16 devices on 4C4M, the
+    psum step's HLO text from ``tests/torch_fixtures/fig7_psum.hlo.txt``)
+    on three fabrics, a 96 000-cycle budget with early drain, in one
+    call, held against ``tests/torch_fixtures/fig7_reference.json``
+    (``drain_cycle``, ``phase_end`` and the air counters included); every
+    trace completes and the cycle-vs-analytic link energy is within 2x.
+    fig7's three synthetic ring traces drain only after 63 488-78 848
+    cycles and are left to ``benchmarks_torch/fig7_traces.py``.
+
+Phases 12-14 each plant two faults that their checks must reject: as
+extra lanes of the same call, tables packed with the bank service one
+cycle longer, the window one wider, a request's birth one cycle early,
+or the first trace phase closing one ejection early; and a rerun of the
+one-shot wireless point with multicast transmit energy counted per copy.
+Each prints wall seconds, points/s, lane-cycles/s and the slowest lane's
+``drain_cycle`` with the card's name and power limit, and reads every
+kernel's launch count after its run (no kernel of this repository runs
+on the simulator).
 
 Phases 8 and 9 also plant two faults in the flash entry point (output
 zeroed; keys 128 and more back dropped), phases 10 and 11 two in the SSD
@@ -1033,6 +1061,285 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
     return dict(forward=fwd, serve=out)
 
 
+# ---------------------------------------------------------------------------
+# closed-loop memory and trace workloads (phases 12-14)
+
+FIG7_SMOKE = ("gemma-7b-oneshot", "compiled")
+MEM_FIELDS = ("amat_cycles", "amat_reads", "mem_reads", "mem_writes",
+              "mem_row_hit_rate", "mem_queue_cycles", "mem_service_cycles",
+              "mem_bw_gbps", "outst_peak")
+
+
+def _diff(want, got, path: str, bad: list) -> None:
+    if isinstance(want, dict):
+        if set(want) != set(got):
+            bad.append(f"{path}: keys {sorted(got)} != {sorted(want)}")
+            return
+        for k in want:
+            _diff(want[k], got[k], f"{path}.{k}", bad)
+    elif isinstance(want, list):
+        if len(want) != len(got):
+            bad.append(f"{path}: {len(got)} entries != {len(want)}")
+            return
+        for i, (w, g) in enumerate(zip(want, got)):
+            _diff(w, g, f"{path}[{i}]", bad)
+    elif isinstance(want, float):
+        if not close(float(got), want):
+            bad.append(f"{path}: {got!r} vs {want!r}")
+    elif got != want:
+        bad.append(f"{path}: {got!r} != {want!r}")
+
+
+def check_all(tag: str, got, want: dict) -> None:
+    """Every ``Metrics`` field against the reference's record: integers
+    (lists of them too) exact, floats within rel 1e-6."""
+    import dataclasses
+    bad: list = []
+    _diff(want, dataclasses.asdict(got), "", bad)
+    if bad:
+        raise AssertionError(f"{tag} disagrees with the reference: "
+                             f"{bad[:6]}{' ...' if len(bad) > 6 else ''}")
+
+
+def rejected(tag: str, check) -> str:
+    """Run a check that a planted fault must fail; its first complaint."""
+    try:
+        check()
+    except AssertionError as e:
+        return str(e)[:160]
+    raise AssertionError(f"planted fault not rejected: {tag}")
+
+
+@contextlib.contextmanager
+def planted_tables(simulator, faults: dict):
+    """``simulator.pack`` hands the points whose ``sim`` object is a key
+    of ``faults`` tables changed by its value: a fault planted in the
+    packed tables of an extra lane, for the phase's check to reject."""
+    import dataclasses
+    orig = simulator.pack
+
+    def pack(topo, rt, tt, phy, sim, *a, **kw):
+        ps = orig(topo, rt, tt, phy, sim, *a, **kw)
+        f = faults.get(id(sim))
+        return dataclasses.replace(ps, ss=f(ps.ss)) if f else ps
+
+    with swapped(simulator, "pack", pack):
+        yield
+
+
+def sim_rates(ms, wall: float, budget: int) -> dict:
+    return dict(wall_s=wall, points=len(ms), points_per_s=len(ms) / wall,
+                lane_cycles_per_s=len(ms) * budget / wall,
+                simulated_lane_cycles_per_s=sum(m.drain_cycle for m in ms)
+                / wall,
+                slowest_drain_cycle=max(m.drain_cycle for m in ms))
+
+
+def phase_fig8(dev, kmods, smi) -> dict:
+    """fig8 at paper size against its JAX fixture, fig8's own checks, and
+    two planted faults riding as extra lanes of the one batched call."""
+    import torch
+    from repro_torch.core import simulator
+    from repro_torch.core.constants import SimParams
+    from repro_torch.core.sweep import run_sweep_batched
+    from repro_torch.memory import DramTimingParams
+    from benchmarks_torch import figures
+
+    fx = figures.fixture("fig8_reference.json")
+    sim = SimParams(**fx["sim"])
+    cases = [p["case"] for p in fx["points"]]
+    pts = [figures.fig8_point(c, sim) for c in cases]
+    # faults at the heaviest wireless window-4 point: the bank service one
+    # cycle longer; the max_outstanding window one wider
+    hot = cases.index(dict(fabric=2, load=1.0, max_outstanding=4))
+    f_sims = [SimParams(**fx["sim"]) for _ in range(2)]
+    faults = {id(f_sims[0]): lambda ss: ss._replace(
+                  t_row_hit=ss.t_row_hit + 1, t_row_miss=ss.t_row_miss + 1),
+              id(f_sims[1]): lambda ss: ss._replace(
+                  max_outst=ss.max_outst + 1)}
+    zero(kmods)
+    t = time.perf_counter()
+    with planted_tables(simulator, faults):
+        ms = run_sweep_batched(
+            pts + [figures.fig8_point(cases[hot], s) for s in f_sims],
+            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts(kmods)
+    expect_counts("fig8", launches, {})
+    ms, fms = ms[:len(pts)], ms[len(pts):]
+    for p, m in zip(fx["points"], ms):
+        check_all(f"fig8 {m.name}", m, p["metrics"])
+    # fig8's hard checks: the window caps the in-flight count, and AMAT
+    # grows with load on every (fabric, window) curve
+    default_window = DramTimingParams().max_outstanding
+    cap_ok = all(m.outst_peak <= c.get("max_outstanding", default_window)
+                 for c, m in zip(cases, ms))
+    sat = []
+    for mo in {c["max_outstanding"] for c in cases if "app" not in c}:
+        for fab in {c["fabric"] for c in cases}:
+            curve = [m.amat_cycles for c, m in zip(cases, ms)
+                     if c.get("max_outstanding") == mo
+                     and c["fabric"] == fab and m.amat_reads > 0]
+            if len(curve) >= 2:
+                sat.append(curve[-1] > curve[0])
+    if not (cap_ok and sat and all(sat)):
+        raise AssertionError(f"fig8 checks: cap {cap_ok}, amat grows {sat}")
+    want = fx["points"][hot]["metrics"]
+    why = [rejected(f"fig8 {n}", lambda m=m: check_all("fault", m, want))
+           for n, m in zip(("bank service +1", "window +1"), fms)]
+    rec = sim_rates(ms, wall, sim.cycles)
+    rec.update(lanes=len(ms) + len(fms), cycles=sim.cycles,
+               outstanding_never_exceeds_window=cap_ok,
+               amat_grows_with_load=all(sat),
+               faults_rejected=why, kernel_launches_on_path=launches,
+               power=smi)
+    say("fig8", json.dumps(rec))
+    return rec
+
+
+def phase_memcl(dev, kmods, smi) -> dict:
+    """The closed-loop golden point against ``tests/goldens``, with two
+    planted faults as extra lanes (bank service one cycle longer; the
+    read round trip's start one cycle early)."""
+    import torch
+    from repro_torch.core import simulator
+    from repro_torch.core.constants import Fabric, SimParams
+    from repro_torch.core.sweep import SweepPoint, run_sweep_batched
+    from repro_torch.memory import MemSweepSpec
+
+    name = "memcl_wireless_4c4m_load03"
+    gold = json.loads((ROOT / "tests" / "goldens" / f"{name}.json")
+                      .read_text())
+    assert gold["sim"] == {"cycles": 1500, "warmup": 300, "seed": 0}
+    sims = [SimParams(cycles=1500, warmup=300, seed=0) for _ in range(3)]
+    faults = {id(sims[1]): lambda ss: ss._replace(
+                  t_row_hit=ss.t_row_hit + 1, t_row_miss=ss.t_row_miss + 1),
+              id(sims[2]): lambda ss: ss._replace(
+                  req_birth=ss.req_birth - (ss.req_birth < 2**30).int())}
+    pts = [SweepPoint(4, 4, Fabric.WIRELESS, load=0.0,
+                      mem=MemSweepSpec(load=0.3), sim=s) for s in sims]
+    zero(kmods)
+    t = time.perf_counter()
+    with planted_tables(simulator, faults):
+        ms = run_sweep_batched(pts, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts(kmods)
+    expect_counts("memcl", launches, {})
+
+    def check(m):
+        check_metrics(name, m, gold["metrics"])
+        bad = [f"{f}: {getattr(m, f)!r} vs {gold['metrics']['memory'][f]!r}"
+               for f in MEM_FIELDS
+               if not close(float(getattr(m, f)),
+                            gold["metrics"]["memory"][f])]
+        if bad:
+            raise AssertionError(f"{name} memory: {bad}")
+
+    check(ms[0])
+    why = [rejected(f"memcl {n}", lambda m=m: check(m))
+           for n, m in zip(("bank service +1", "request birth -1"), ms[1:])]
+    rec = sim_rates(ms[:1], wall, 1500)
+    rec.update(lanes=len(ms), amat_cycles=ms[0].amat_cycles,
+               mem_bw_gbps=ms[0].mem_bw_gbps, faults_rejected=why,
+               kernel_launches_on_path=launches, power=smi)
+    say("memcl-golden", json.dumps(rec))
+    return rec
+
+
+def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE) -> dict:
+    """fig7's traces ``names`` x three fabrics at paper size against the
+    JAX fixture, every trace complete, the cycle-vs-analytic link energy
+    within 2x; a planted phase fault rides as an extra lane, and a planted
+    multicast energy fault reruns the one-shot wireless point."""
+    import torch
+    from repro_torch.core import simulator, traffic
+    from repro_torch.core.constants import Fabric, SimParams
+    from repro_torch.core.sweep import run_sweep_batched
+    from repro_torch.core.topology import build_xcym
+    from repro_torch.interconnect.fabric import price_table
+    from benchmarks_torch import figures
+
+    fx = figures.fixture("fig7_reference.json")
+    sim = SimParams(**fx["sim"])
+    traces = figures.fig7_traces(names)
+    for (name, tr), want in zip(traces, [t for t in fx["traces"]
+                                         if t["name"] in names]):
+        assert want["name"] == name
+        if tr.describe() != want["describe"] \
+                or not close(tr.bytes_total(), want["bytes_total"]):
+            raise AssertionError(f"fig7 trace {name}: {tr.describe()} vs "
+                                 f"{want['describe']}")
+    ref = {(p["trace"], p["fabric"]): p for p in fx["points"]}
+    meta = [(name, tr, fab) for name, tr in traces
+            for fab in figures.FIG7_FABRICS]
+    pts = [figures.fig7_point(n, tr, fab, sim) for n, tr, fab in meta]
+    # fault 1: the one-shot wireless point with its first phase closing
+    # one ejection early (phase_need short by one)
+    mc_i = [(n, f) for n, _, f in meta].index(("gemma-7b-oneshot",
+                                               "WIRELESS")) \
+        if "gemma-7b-oneshot" in names else 0
+    f_sim = SimParams(**fx["sim"])
+    faults = {id(f_sim): lambda ss: ss._replace(
+        phase_need=ss.phase_need - (torch.arange(
+            ss.phase_need.shape[0], device=ss.phase_need.device) == 0).int())}
+    zero(kmods)
+    t = time.perf_counter()
+    with planted_tables(simulator, faults):
+        ms = run_sweep_batched(pts + [figures.fig7_point(
+            meta[mc_i][0], meta[mc_i][1], meta[mc_i][2], f_sim)], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts(kmods)
+    expect_counts("fig7", launches, {})
+    ms, fm = ms[:len(pts)], ms[-1]
+    worst, rows = 0.0, {}
+    phy = pts[0].phy
+    for (name, tr, fab), m in zip(meta, ms):
+        want = ref[(name, int(Fabric[fab]))]
+        check_all(f"fig7 {m.name}", m, want["metrics"])
+        if not m.trace_done:
+            raise AssertionError(f"fig7 {m.name}: trace not complete")
+        topo = build_xcym(figures.N_CHIPS, figures.N_MEM, Fabric[fab])
+        tt = traffic.from_trace(topo, tr, phy.pkt_flits)
+        _tot, pj_bit = price_table(topo, tt, phy.pkt_flits, phy.flit_bits)
+        if not close(pj_bit, want["analytic_pj_bit"]):
+            raise AssertionError(f"fig7 {m.name}: analytic {pj_bit} vs "
+                                 f"{want['analytic_pj_bit']}")
+        bits = max(m.flits_delivered, 1) * phy.flit_bits
+        ratio = m.energy_breakdown["links"] / bits / pj_bit
+        worst = max(worst, ratio, 1 / ratio)
+        rows[m.name] = dict(drain_cycle=m.drain_cycle,
+                            trace_cycles=m.trace_cycles,
+                            wl_tx_flits=m.wl_tx_flits,
+                            wl_rx_flits=m.wl_rx_flits, energy_ratio=ratio)
+    if worst > 2.0:
+        raise AssertionError(f"fig7: link energy ratio {worst} > 2x")
+    want = ref[(meta[mc_i][0], int(Fabric[meta[mc_i][2]]))]["metrics"]
+    why = [rejected("fig7 phase_need -1",
+                    lambda: check_all("fault", fm, want))]
+    if "gemma-7b-oneshot" in names:
+        # fault 2: multicast transmit energy counted per copy, not once
+        t2 = time.perf_counter()
+        with swapped(simulator, "_air_counted",
+                     lambda ss, incoming, *a: incoming):
+            fm2 = run_sweep_batched([pts[mc_i]], device=dev)[0]
+        torch.cuda.synchronize()
+        wall_fault = time.perf_counter() - t2
+        why.append(rejected("fig7 multicast energy per copy",
+                            lambda: check_all("fault", fm2, want)))
+    rec = sim_rates(ms, wall, sim.cycles)
+    rec.update(traces=list(names), lanes=len(ms) + 1,
+               budget_cycles=sim.cycles, all_traces_complete=True,
+               worst_energy_ratio=worst, faults_rejected=why,
+               fault_rerun_wall_s=wall_fault if len(why) > 1 else None,
+               points_detail=rows, kernel_launches_on_path=launches,
+               power=smi)
+    say("fig7", json.dumps(rec))
+    return rec
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1149,6 +1456,12 @@ def main() -> int:
     ssd_tc.update(launches=path["ssd_scan_tc"],
                   launches_all_routes=path["ssd_scan"],
                   path="mamba2-1.3b forward, 48 layers (phase 11)")
+
+    # the simulator's closed-loop memory and trace paths (no kernel of
+    # this repository runs on them; each phase reads the counts after)
+    phase_fig8(dev, kmods, smi)
+    phase_memcl(dev, kmods, smi)
+    phase_fig7(dev, kmods, smi)
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc,

@@ -5,7 +5,12 @@ port's have the same leaf names, shapes and dtypes.  Given as
 ``{name: np.ndarray}`` (for example ``{k: np.asarray(v) for k, v in
 jax_state._asdict().items()}``), they become the port's tuples on a
 device, and back.  This is the simulator's counterpart of loading
-weights: a test can start both engines from one state.
+weights: a test can start both engines from one state, a mid-run one
+included.  Every leaf carries, the closed-loop memory leaves (``rdy``,
+``dead``, ``outst``, ``bank_*``, ``amat_*``, ``mem_*``) and the trace
+leaves (``cur_phase``, ``phase_*``, ``mc_id``) too; a state made with
+``mem_on`` must run in the port with ``mem_on`` (``simulator.run_from``,
+``run_cycles``).
 
 For the model side, ``params_from_jax`` turns the reference's parameter
 tree (leaves as numpy arrays) into the port's, and ``numpy_params`` makes

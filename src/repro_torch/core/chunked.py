@@ -38,10 +38,11 @@ def _take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 2, idx.long()[..., None])[..., 0]
 
 
-def drain_done(ss, st, t0: int) -> torch.Tensor:
+def drain_done(ss, st, t0: int, mem_on: bool = False) -> torch.Tensor:
     """Per lane [G]: True iff no future cycle can change the state (except
-    the awake/sleep accounting).  Open-loop tables only: ``rdy``/``dead``
-    are placeholders and are not read."""
+    the awake/sleep accounting).  ``mem_on`` is the flag the step was
+    built with: without it ``rdy``/``dead`` are placeholders and are not
+    read."""
     G = st.pkt_src.shape[0]
     no_pkts = ~(st.pkt_src >= 0).reshape(G, -1).any(-1)
     pipes_empty = ~(st.pipe != 0).reshape(G, -1).any(-1)
@@ -50,6 +51,11 @@ def drain_done(ss, st, t0: int) -> torch.Tensor:
     qh = st.q_head.clamp(0, K - 1)
     open_slot = st.q_head < K
     idle_head = _take_rows(ss.births, qh) >= int(NO_PKT)
+    if mem_on:
+        # a reply slot births when the bank model writes its ``rdy``; a
+        # tombstoned head would still advance q_head (the dead-slot skip)
+        idle_head &= _take_rows(st.rdy, qh) >= int(NO_PKT)
+        idle_head &= ~_take_rows(st.dead, qh)
     no_births = (~open_slot | idle_head).all(-1)
     outst_zero = (st.outst == 0).all(-1)
     phases_done = (ss.n_phases == 0) | (st.cur_phase >= ss.n_phases)
@@ -88,13 +94,15 @@ def _select(live: torch.Tensor, new, old):
     return type(old)(*out)
 
 
-def run_chunked(step: Callable, ss, st, budgets: Sequence[int]):
+def run_chunked(step: Callable, ss, st, budgets: Sequence[int],
+                mem_on: bool = False):
     """Drive ``step(st, t) -> st`` over lane-leading ``st`` to each lane's
     budget, with early drain exit.
 
     ``budgets`` are the lanes' cycle budgets on the host (equal to
     ``ss.cycles``): where every lane is stepping and the whole chunk lies
-    within every budget, no per-cycle mask is needed.
+    within every budget, no per-cycle mask is needed.  ``mem_on`` as in
+    ``drain_done``.
     """
     G = len(budgets)
     cycles = ss.cycles
@@ -103,7 +111,7 @@ def run_chunked(step: Callable, ss, st, budgets: Sequence[int]):
     stop = torch.zeros(G, dtype=torch.int32, device=dev)
     t0 = 0
     while True:
-        cont = ~stopped & (t0 < cycles) & ~drain_done(ss, st, t0)
+        cont = ~stopped & (t0 < cycles) & ~drain_done(ss, st, t0, mem_on)
         newly = ~stopped & ~cont
         stop = torch.where(newly, t0, stop)
         stopped = stopped | newly

@@ -13,8 +13,8 @@ The energy terms are reduced on the device in float32 for the whole lane
 batch at once.  The sum over links runs in another order than XLA's, so
 energies agree with the reference to float32 rounding (the golden harness
 holds them to rel 1e-6); every integer counter is exact.  The lossy-PHY
-and closed-loop memory extensions of ``Metrics`` stay at their defaults:
-``pack`` does not accept those points yet.
+extensions of ``Metrics`` stay at their defaults: ``pack`` does not accept
+those points yet.
 """
 from __future__ import annotations
 
@@ -121,6 +121,34 @@ class Metrics:
                 f"{self.avg_pkt_energy_pj:.0f}")
 
 
+def phase_durations(m: Metrics) -> list[int]:
+    """Per-phase cycle counts (completion-to-completion deltas)."""
+    out, prev = [], 0
+    for p in range(m.phases_done):
+        out.append(m.phase_end[p] - prev)
+        prev = m.phase_end[p]
+    return out
+
+
+def collective_summary(m: Metrics, labels: Sequence[str]) -> dict:
+    """Aggregate per-phase timings/flits by collective label.
+
+    ``labels`` is the emitted table's ``phase_labels``; fan-out relay
+    phases (``<label>/fanout``) fold into their parent collective.
+    Returns ``{label: {"cycles": int, "flits": int, "phases": int}}`` in
+    first-appearance order — the per-collective view of a trace run.
+    """
+    durs = phase_durations(m)
+    out: dict = {}
+    for p, lab in enumerate(labels[:m.phases_done]):
+        base = lab.rsplit("/fanout", 1)[0]
+        rec = out.setdefault(base, {"cycles": 0, "flits": 0, "phases": 0})
+        rec["cycles"] += durs[p]
+        rec["flits"] += m.phase_flits[p] if p < len(m.phase_flits) else 0
+        rec["phases"] += 1
+    return out
+
+
 def _energy_terms(b_epb, counts_into, count_switch, ctrl_count,
                   awake_cycles, sleep_cycles, bits, e_switch_pj_bit,
                   ctrl_flit_bits_epj, rx_idle, rx_sleep):
@@ -160,6 +188,11 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
         "cycles_run", "pkts_del", "flits_del", "flits_inj", "lat_pkts",
         "lat_sum", "cur_phase", "phase_end", "phase_flits", "wl_tx_flits",
         "wl_rx_flits", "drain_cycle")}
+    if any(ps.mem_on for ps in pss):
+        h.update({k: getattr(st, k).cpu().numpy() for k in (
+            "mem_reads", "mem_writes", "mem_row_hits", "mem_q_sum",
+            "mem_svc_sum", "mem_flits", "amat_sum", "amat_pkts",
+            "outst_peak")})
 
     out = []
     for g, ps in enumerate(pss):
@@ -177,6 +210,38 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
                else float("nan"))
         thr = flits / window / ps.n_cores
         n_ph = int(ps.ss.n_phases)
+        memkw = {}
+        if ps.mem_on:
+            Ym = ps.topo.n_mem
+            reads = h["mem_reads"][g][:Ym]
+            writes = h["mem_writes"][g][:Ym]
+            hits = h["mem_row_hits"][g][:Ym]
+            q_sum = h["mem_q_sum"][g][:Ym]
+            s_sum = h["mem_svc_sum"][g][:Ym]
+            mflits = h["mem_flits"][g][:Ym]
+            reqs = max(int((reads + writes).sum()), 1)
+            a_pkts = int(h["amat_pkts"][g])
+            amat = (float(h["amat_sum"][g]) / a_pkts if a_pkts
+                    else float("nan"))
+            q_avg = float(q_sum.sum()) / reqs
+            s_avg = float(s_sum.sum()) / reqs
+            to_gbps = bits * phy.clock_ghz / window
+            memkw = dict(
+                amat_cycles=amat, amat_reads=a_pkts,
+                mem_reads=int(reads.sum()), mem_writes=int(writes.sum()),
+                mem_row_hit_rate=float(hits.sum()) / reqs,
+                mem_queue_cycles=q_avg, mem_service_cycles=s_avg,
+                mem_network_cycles=amat - q_avg - s_avg,
+                mem_bw_gbps=float(mflits.sum()) * to_gbps,
+                outst_peak=int(h["outst_peak"][g].max()),
+                # util: fraction of the stack's full-duplex 4-channel
+                # data capacity (4 flits/cycle in + 4 out)
+                per_stack=[dict(reads=int(reads[y]), writes=int(writes[y]),
+                                row_hits=int(hits[y]),
+                                flits=int(mflits[y]),
+                                bw_gbps=float(mflits[y]) * to_gbps,
+                                util=float(mflits[y]) / window / 8)
+                           for y in range(Ym)])
         out.append(Metrics(
             name=names[g],
             offered_load=offered_loads[g],
@@ -198,6 +263,21 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
             wl_rx_flits=int(h["wl_rx_flits"][g]),
             cycles_run=cyc,
             drain_cycle=int(h["drain_cycle"][g]),
+            **memkw,
         ))
     return out
+
+
+def compute_metrics(ps: PackedSim, st: SimState, name: str,
+                    offered_load: float, cycles: int | None = None) -> Metrics:
+    """Single-state metrics: the batch path with a lane of one."""
+    st_b = SimState(*(x[None] for x in st))
+    return compute_metrics_batch([ps], st_b, [name], [offered_load],
+                                 cycles=cycles)[0]
+
+
+def inflight_flits(st: SimState) -> int:
+    """Flits inside the network (buffers + pipes): conservation checks."""
+    occ = torch.where(st.pkt_src >= 0, st.rcvd - st.sent, 0)
+    return int(occ.sum()) + int(st.pipe.sum())
 

@@ -21,16 +21,29 @@ live in a short arrival pipe (shift register).
 
 What this port covers
 ---------------------
-The open-loop, ideal-channel program of the reference step
-(``mem_on = phy_on = drift_on = reselect = False``): all three wireless
-media (crossbar, matching, single), both MAC modes (control packet,
-token) and sleepy receivers.  ``pack`` raises ``NotImplementedError`` for
-tables with memory ops, multicast groups or phases and for a
-``phy_spec`` (ROADMAP A5-A7).  The multicast terms of the reference step
-are therefore absent here: with no groups they are identically inert,
-and ``mc_id`` stays at its ``init_state`` value.  The phase-barrier
-bookkeeping is kept, because the open-loop step still writes
-``phase_del``/``phase_flits``.
+The reference step with the lossy PHY and the living channel off
+(``phy_on = drift_on = reselect = False``): all three wireless media
+(crossbar, matching, single), both MAC modes (control packet, token),
+sleepy receivers, and
+
+- *trace tables*: phase barriers (a packet injects once its phase is
+  open; a phase closes at ``phase_need`` ejections) and multicast groups
+  (``dests = -(1 + m)``: all-or-nothing VC claims at every member rx
+  buffer, one shared-channel occupancy per flit fanned out through
+  ``src_of``, transmit energy counted once on the primary copy);
+  store-and-forward receivers under ``rx_hold``;
+- *memory tables* under the static ``mem_on``: per-slot packet lengths,
+  a request's ejection way forced to its pseudo-channel, the bank model
+  (service from ``max(t + 1, bank_busy)``, row hit or miss), reply births
+  in ``rdy`` by a one-assignment minimum, the ``max_outstanding`` gate on
+  ``outst`` credited back at the requester, the ``amat_*``/``mem_*``
+  counters.
+
+The multicast terms sit under a second static flag of the port's own,
+``mc_on``: without multicast groups every one of them is inert, and
+``pack`` leaves them out, so an open-loop point runs the open-loop
+program alone.  ``pack`` raises ``NotImplementedError`` for a
+``phy_spec`` (ROADMAP A7).
 
 Lanes
 -----
@@ -257,13 +270,17 @@ class SimState(NamedTuple):
     drain_cycle: torch.Tensor  # scalar i32
 
 
-def init_state(B: int, N: int, P: int = 1, Y: int = 1, *,
+def init_state(B: int, N: int, P: int = 1, K: int = 1, Y: int = 1,
+               BK: int = 1, mem_on: bool = False, *,
                lanes: int | None = None, device=None) -> SimState:
-    """Zero state, leaf for leaf the reference's open-loop ``init_state``.
+    """Zero state, leaf for leaf the reference's ``init_state`` with the
+    lossy PHY and the living channel off.
 
-    The memory, PHY and living-channel leaves keep the reference's
-    placeholder shapes for disabled paths.  ``lanes`` prepends a lane
-    dimension of that size to every leaf.
+    The closed-loop memory leaves (``rdy``, ``dead``, ``bank_busy``,
+    ``bank_row``) take their real shapes only with ``mem_on``, and the
+    PHY and living-channel leaves keep the reference's placeholder
+    shapes.  ``lanes`` prepends a lane dimension of that size to every
+    leaf.
     """
     dev = _device.resolve(device)
     pre = () if lanes is None else (lanes,)
@@ -274,8 +291,8 @@ def init_state(B: int, N: int, P: int = 1, Y: int = 1, *,
     def z(shape, dtype=i32):
         return full(shape, 0, dtype)
 
-    NK = (1, 1)
-    YCB = (1, 1, 1)
+    NK = (N, K) if mem_on else (1, 1)
+    YCB = (Y, MEM_CH, BK) if mem_on else (1, 1, 1)
     WW = WWL = (1, 1)
     RL = (1,)
     BV = (B, V)
@@ -358,6 +375,7 @@ class Derived(NamedTuple):
     cr_ok: torch.Tensor      # [G, W, CR, 1]
     rx_tgt: torch.Tensor     # [G, W, 1, 1] rx buffer id of receiver w
     idx_s: torch.Tensor      # [G, S, CS, V] slots at each switch
+    cs_ok: torch.Tensor      # [G, S, CS, 1] real candidate
     way_ok: torch.Tensor     # [G, EJ, S, CS, V] candidate on ejection way e
     sub_ok: torch.Tensor     # [G, RXW, W, CR, 1] sender on rx sub-channel r
     idx_t: torch.Tensor      # [G, W, CS, V] slots at each WI's switch
@@ -370,6 +388,8 @@ class Derived(NamedTuple):
     rx_live: torch.Tensor    # [G, W] receiver exists
     hold_bv: torch.Tensor    # [G, B, 1] store-and-forward rx buffer
     flat2d: torch.Tensor     # [B, V] flat slot id, int32
+    warr: torch.Tensor       # [WMAX] receiver ids
+    ej_ar: torch.Tensor      # [EJ, 1, 1, 1] ejection way ids
     vcol: torch.Tensor       # [V] int32
     b_ids: torch.Tensor      # [B] int32
     n_ar: torch.Tensor       # [N]
@@ -393,9 +413,8 @@ def derive(ss: SimStatic, B: int) -> Derived:
     cs_ok = (ss.cands < B)[..., None]
     way_bv = varr.to(i32) % ss.b_ej_ways[:, :, None]                # [G,B,V]
     way_s = take(way_bv.reshape(G, -1), idx_s)                      # [G,S,CS,V]
-    way_ok = cs_ok[:, None] & (
-        way_s[:, None] == torch.arange(EJ_WAYS, device=dev)[:, None, None,
-                                                             None])
+    ej_ar = torch.arange(EJ_WAYS, device=dev)[:, None, None, None]
+    way_ok = cs_ok[:, None] & (way_s[:, None] == ej_ar)
     rxw = ss.rxw.clamp(min=1)
     r_cand = (take(ss.b_wi, crc) % rxw[:, None, None])[..., None]   # [G,W,CR,1]
     sub_ok = r_cand[:, None] == torch.arange(
@@ -406,7 +425,7 @@ def derive(ss: SimStatic, B: int) -> Derived:
         idx_w=idx_w, cw_ok=(cw < B)[..., None],
         idx_r=idx_r, cr_ok=(ss.candr < B)[..., None],
         rx_tgt=(rx0 + warr)[..., None, None],
-        idx_s=idx_s, way_ok=way_ok, sub_ok=sub_ok,
+        idx_s=idx_s, cs_ok=cs_ok, way_ok=way_ok, sub_ok=sub_ok,
         idx_t=take(idx_s, wi_sw_c), cT_ok=take(cs_ok, wi_sw_c),
         way_bv=way_bv,
         r_mine=r_mine[:, :, None].expand(G, B, V),
@@ -416,6 +435,7 @@ def derive(ss: SimStatic, B: int) -> Derived:
         rx_live=warr < ss.n_wi[:, None],
         hold_bv=(ss.rx_hold[:, None] & ss.b_is_rx)[..., None],
         flat2d=torch.arange(B * V, dtype=i32, device=dev).reshape(B, V),
+        warr=warr, ej_ar=ej_ar,
         vcol=varr.to(i32), b_ids=torch.arange(B, dtype=i32, device=dev),
         n_ar=torch.arange(N, device=dev),
         parr=torch.arange(P, dtype=i32, device=dev),
@@ -446,32 +466,50 @@ def _sum_i32(x: torch.Tensor, dims) -> torch.Tensor:
 
 
 def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
-              drift_on: bool = False, reselect: bool = False):
+              drift_on: bool = False, reselect: bool = False,
+              mc_on: bool = True):
     """Build the per-cycle transition ``step(ss, d, st, t) -> st``.
 
     ``ss``/``st`` are lane-leading; ``d = derive(ss, B)``; ``t`` is the
-    cycle (a Python int, shared by all lanes).  Only the open-loop
-    ideal-channel program exists in the port: any path flag raises.
+    cycle (a Python int, shared by all lanes).  ``mem_on`` (static, as in
+    the reference) adds the closed-loop memory path: bank model, reply
+    gating, the outstanding-transaction cap, per-slot packet lengths.
+    ``mc_on`` (static, the port's own) keeps the multicast terms; with it
+    off they are left out, which is exact only for tables without
+    multicast groups (there every one of them is inert): the drivers set
+    it from the tables.  The lossy-PHY and living-channel paths are not
+    ported: their flags raise.
     """
-    if mem_on or phy_on or drift_on or reselect:
+    if phy_on or drift_on or reselect:
         raise NotImplementedError(
-            "closed-loop memory / lossy PHY steps: ROADMAP A6-A7")
+            "lossy PHY / living-channel steps: ROADMAP A7")
     NC = B * V
     NCp1 = NC + 1
     assert NC * (NC + 1) < 2**31, \
         f"B={B}: priority codes would overflow int32 (B*V must be < 46341)"
     BIGC = NC * NCp1
+    BIGS = 1 << 30
 
     def step(ss: SimStatic, d: Derived, st: SimState, t: int) -> SimState:
         G = st.pkt_src.shape[0]
         S = ss.next_out.shape[1]
         P = ss.phase_need.shape[1]
+        M = ss.mc_member.shape[1]
         N, K = ss.births.shape[1], ss.births.shape[2]
         flat2d, vcol, b_ids = d.flat2d, d.vcol, d.b_ids
         classA = vcol < V // 2
+        warr = d.warr
 
         def lane(x, nd):            # [G] per-lane scalar -> broadcastable
             return x.view((G,) + (1,) * (nd - 1))
+
+        def group_of(mc_id):        # multicast table rows of each slot
+            return take(ss.mc_member, mc_id.clamp(0, M - 1))      # [G,B,V,W]
+
+        def member_at(mcf, idx):    # candidates' groups hold receiver w
+            gm = take(mcf, idx)                                   # [G,W,C,V]
+            return (gm >= 0) & take2(ss.mc_member, gm.clamp(0, M - 1),
+                                     warr[:, None, None])
 
         post = (ss.warmup <= t).to(i32)                          # [G]
         rot = t % NC
@@ -499,9 +537,28 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         first_free_c = _first_true(free_ok)                       # [G,B,V]
         # store-and-forward receivers (rx_hold): an rx slot claims its
         # downstream VC only once the whole packet has arrived
-        hold0_ok = ~d.hold_bv | (rcvd >= lane(ss.pkt_len, 3))
-        need = active & (st.out_vc < 0) & ~st.out_is_ej & (occ > 0) \
-            & (st.out_buf < B) & hold0_ok & has_free_c
+        if mem_on:
+            plen0 = take2(ss.lens, st.pkt_src.clamp(0, N - 1),
+                          st.pkt_idx.clamp(0, K - 1))
+        else:
+            plen0 = lane(ss.pkt_len, 3)
+        hold0_ok = ~d.hold_bv | (rcvd >= plen0)
+        need_base = active & (st.out_vc < 0) & ~st.out_is_ej & (occ > 0) \
+            & (st.out_buf < B) & hold0_ok
+        if mc_on:
+            # multicast senders (group set, air hop ahead) need a VC at
+            # EVERY member rx buffer: the claim is all-or-nothing.  A copy
+            # (phase2 set at rx install) is a plain unicast again.
+            is_mc0 = (st.mc_id >= 0) & st.out_is_wl & ~st.phase2 & active
+            member0 = group_of(st.mc_id)                          # [G,B,V,W]
+            free_any_rx = take(free_mask, d.rx_ids).any(-1)       # [G,W]
+            free_all_mc = torch.where(member0, free_any_rx[:, None, None],
+                                      True).all(-1)
+            need_uni = need_base & ~is_mc0 & has_free_c
+            need_mc = need_base & is_mc0 & free_all_mc
+            need = need_uni | need_mc
+        else:
+            need = need_uni = need_base & has_free_c
         code = torch.where(need, prio, BIGC)                      # [G,B,V]
         codef = code.reshape(G, -1)
         obf0 = st.out_buf.reshape(G, -1)
@@ -511,24 +568,43 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         m_w = d.cw_ok & (take(obf0, d.idx_w) == b_ids[:, None, None])
         win_code_w = torch.where(m_w, take(codef, d.idx_w),
                                  BIGC).amin((2, 3))               # [G,B]
-        # winner per wireless rx target: contenders at sender WI switches
-        m_r = d.cr_ok & (take(obf0, d.idx_r) == d.rx_tgt)
-        win_code_r = torch.where(m_r, take(codef, d.idx_r),
+        # winner per wireless rx target: contenders at sender WI switches;
+        # a multicast contends at every member receiver at once
+        m_r = take(obf0, d.idx_r) == d.rx_tgt
+        if mc_on:
+            mcf0 = torch.where(is_mc0, st.mc_id, -1).reshape(G, -1)
+            m_r = m_r | member_at(mcf0, d.idx_r)
+        win_code_r = torch.where(d.cr_ok & m_r, take(codef, d.idx_r),
                                  BIGC).amin((2, 3))               # [G,W]
         win_code = torch.where(ss.b_is_rx, take(win_code_r, d.rx_slot),
                                win_code_w)
         has_win = win_code < BIGC                                 # [G,B]
         wsrc = torch.where(has_win, win_code % NCp1, 0)           # flat slot
         wsrc_l = wsrc.long()
-        win_uni = need & (take(win_code, ob_c0) == code)
+        win_uni = need_uni & (take(win_code, ob_c0) == code)
 
         def g(a):            # winner's field per target buffer -> [G,B]
             return take(a.reshape(G, -1), wsrc_l)
 
         vfree_self = _first_true(free_mask)                       # [G,B]
         vstar = torch.where(ss.b_is_rx, vfree_self, g(first_free_c))
-        claimed = has_win[..., None] & (vstar[..., None] == vcol)  # [G,B,V]
         dst_w = g(st.pkt_dst)
+        if mc_on:
+            # source side: a multicast claim stands only if it won EVERY
+            # member; target side: a partial multicast winner claims
+            # nothing, and each member copy goes to its own per-WI
+            # destination from the group table
+            win_all_mc = torch.where(
+                member0, win_code_r[:, None, None] == code[..., None],
+                True).all(-1)                                     # [G,B,V]
+            win_mc = need_mc & win_all_mc
+            w_mc = take(mcf0, wsrc_l)                             # [G,B]
+            w_group_ok = g(win_all_mc)
+            has_win = has_win & ((w_mc < 0) | w_group_ok)
+            mc_dst_w = take2(ss.mc_dst, w_mc.clamp(0, M - 1), d.rx_slot)
+            dst_w = torch.where(ss.b_is_rx & (w_mc >= 0),
+                                mc_dst_w.clamp(0, S - 1), dst_w)
+        claimed = has_win[..., None] & (vstar[..., None] == vcol)  # [G,B,V]
         d_oo, d_ob, d_owo, d_owl, d_oej = _route_fields(ss, ss.b_dst, dst_w)
 
         def upd(old, val_b):
@@ -545,18 +621,38 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         out_is_ej = upd(st.out_is_ej, d_oej)
         out_vc = torch.where(claimed, -1, st.out_vc)
         phase2 = upd(st.phase2, g(st.phase2) | ss.b_is_rx)
+        mc_id = upd(st.mc_id, g(st.mc_id)) if mc_on else st.mc_id
         attempt = torch.where(claimed, 0, st.attempt)
         rcvd = torch.where(claimed, 0, rcvd)
         sent = torch.where(claimed, 0, st.sent)
         src_of = upd(st.src_of, wsrc)
-        # upstream learns its allocated VC
+        # upstream learns its allocated VC (multicast: the sentinel 0 for
+        # "granted"; delivery is receiver-side via src_of)
         out_vc = torch.where(win_uni, first_free_c.to(out_vc.dtype), out_vc)
+        if mc_on:
+            out_vc = torch.where(win_mc, 0, out_vc)
 
         active = pkt_src >= 0
         occ = torch.where(active, rcvd - sent, 0)
         psrc_c = pkt_src.clamp(0, N - 1)
         pidx_c = pkt_idx.clamp(0, K - 1)
-        plen = lane(ss.pkt_len, 3)
+        # per-slot packet attributes from the [N, K] tables; without
+        # mem_on the global packet length stands in and ejection ways stay
+        # vc-assigned (the open-loop program)
+        if mem_on:
+            plen = take2(ss.lens, psrc_c, pidx_c)                 # [G,B,V]
+            op_bv = torch.where(active, take2(ss.mem_op, psrc_c, pidx_c), 0)
+            memrq_bv = (op_bv == 1) | (op_bv == 2)
+            ch_bv = take2(ss.mem_ch, psrc_c, pidx_c).clamp(0, EJ_WAYS - 1)
+            # a request's ejection way IS its pseudo-channel: per-way
+            # arbitration then admits one request per (stack, ch)/cycle
+            way_bv = torch.where(memrq_bv & out_is_ej,
+                                 ch_bv % ss.b_ej_ways[..., None], d.way_bv)
+            way_s = take(way_bv.reshape(G, -1), d.idx_s)          # [G,S,CS,V]
+            way_ok = d.cs_ok[:, None] & (way_s[:, None] == d.ej_ar)
+        else:
+            plen = lane(ss.pkt_len, 3)
+            way_bv, way_ok = d.way_bv, d.way_ok
 
         # ---- 2b. forwarding: wired links, ejection, wireless -------------
         inflight = pipe.sum(-1, dtype=i32)                        # [G,B,V]
@@ -568,6 +664,27 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         space = take(ss.b_depth, ob_c) - occ_down \
             - take(inflight.reshape(G, -1), down)
         link_free = take(st.busy_until, ob_c) <= t
+        if mc_on:
+            # multicast sender: backpressure is the MINIMUM over its member
+            # copies (found through the src_of inverse map on the rx
+            # region); a broadcast flit flies only when every member can
+            # take it
+            is_mc = (mc_id >= 0) & out_is_wl & ~phase2 & active   # [G,B,V]
+            mcid_c = mc_id.clamp(0, M - 1)
+            member = group_of(mc_id)                              # [G,B,V,W]
+            srcof_rx = take(src_of, d.rx_ids)                     # [G,W,V]
+            room_rx = take(ss.b_depth, d.rx_ids)[..., None] \
+                - take(occ, d.rx_ids) - take(inflight, d.rx_ids)  # [G,W,V]
+            cp = srcof_rx[:, None, None] == flat2d[:, :, None, None]
+            cp_space = torch.where(cp, room_rx[:, None, None],
+                                   BIGS).amin(-1)                 # [G,B,V,W]
+            cp_space = torch.where(cp.any(-1), cp_space, 0)       # no copy yet
+            space_mc = torch.where(member, cp_space, BIGS).amin(-1)
+            space = torch.where(is_mc, space_mc, space)
+            busy_rx_ok = take(st.busy_until, d.rx_ids) <= t       # [G,W]
+            lf_mc = torch.where(member, busy_rx_ok[:, None, None],
+                                True).all(-1)
+            link_free = torch.where(is_mc, lf_mc, link_free)
         # token MAC: wireless transmission only once the whole packet is here
         whole = rcvd >= plen
         wl_ok = ~out_is_wl | ~lane(ss.mac_token, 3) | whole
@@ -588,25 +705,37 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         m2_w = d.cw_ok & (take(obf, d.idx_w) == b_ids[:, None, None])
         win2_w = torch.where(m2_w, take(code2f, d.idx_w), BIGC).amin((2, 3))
         # multi-channel ejection: one winner per (switch, way); a slot's
-        # way is vc % b_ej_ways (memory stacks sink 4 flits/cycle)
+        # way is vc % b_ej_ways (memory requests: their channel)
         m_ej = take(out_is_ej.reshape(G, -1), d.idx_s)            # [G,S,CS,V]
-        win2_ej = torch.where(d.way_ok & m_ej[:, None],
+        win2_ej = torch.where(way_ok & m_ej[:, None],
                               take(code2f, d.idx_s)[:, None],
                               BIGC).amin((3, 4))                  # [G,EJ,S]
         # wireless rx sub-channels: receiver w serves `rxw` concurrent
-        # streams; a sender's stream is its WI id mod rxw
-        m2_r = d.cr_ok & (take(obf, d.idx_r) == d.rx_tgt)         # [G,W,CR,V]
-        win2_wl = torch.where(d.sub_ok & m2_r[:, None],
+        # streams; a sender's stream is its WI id mod rxw.  A multicast
+        # contends at every member receiver (on its own sub-channel) and
+        # transmits only if it wins ALL of them
+        m2_r = take(obf, d.idx_r) == d.rx_tgt                     # [G,W,CR,V]
+        if mc_on:
+            mcf = torch.where(is_mc, mc_id, -1).reshape(G, -1)
+            m2_r = m2_r | member_at(mcf, d.idx_r)
+        win2_wl = torch.where(d.sub_ok & (d.cr_ok & m2_r)[:, None],
                               take(code2f, d.idx_r)[:, None],
                               BIGC).amin((3, 4))                  # [G,RXW,W]
 
         owo_s = out_wo.clamp(0, S - 1)                            # eject: switch
         owo_w = out_wo.clamp(0, WMAX - 1)                         # wl: dst WI
         win2_mine = torch.where(
-            out_is_ej, take2(win2_ej, d.way_bv, owo_s),
+            out_is_ej, take2(win2_ej, way_bv, owo_s),
             torch.where(out_is_wl, take2(win2_wl, d.r_mine, owo_w),
                         take(win2_w, ob_c)))
-        fwd = elig & (code2 == win2_mine)
+        if mc_on:
+            r_all = take2(win2_wl, d.r_mine[..., None],
+                          warr.expand(G, B, V, WMAX))             # [G,B,V,W]
+            wl_all2 = torch.where(member, r_all == code2[..., None],
+                                  True).all(-1)
+            fwd = elig & torch.where(is_mc, wl_all2, code2 == win2_mine)
+        else:
+            fwd = elig & (code2 == win2_mine)
 
         # wireless sender-side cap: one flit per transmitting WI per cycle
         # (one WI total in single-channel mode); no-op for the crossbar
@@ -634,8 +763,8 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             lat_ok, (t - born + 1).to(f32), 0.0).sum((1, 2))
         lat_pkts = st.lat_pkts + post * _sum_i32(lat_ok, (1, 2))
 
-        # ---- phase barrier bookkeeping (raw counts; inert for open-loop
-        # tables apart from the two running counters)
+        # ---- phase barrier bookkeeping (raw counts: the dependency
+        # structure must not depend on the stats warm-up)
         phv = take2(ss.phases, psrc_c, pidx_c)                     # [G,B,V]
         cur = st.cur_phase
         phase_del = st.phase_del + _sum_i32(
@@ -649,6 +778,13 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
                                 st.phase_end)
         cur_phase = cur + complete.to(i32)
         phase_del = torch.where(complete, 0, phase_del)
+
+        # ---- closed-loop memory: bank model + reply gating (mem tables)
+        mem = {}
+        if mem_on:
+            mem = _memory_block(ss, st, t, post, pkt_src, pkt_idx, tail,
+                                tail_ej, win2_ej, psrc_c, pidx_c,
+                                NCp1, BIGC)
 
         # non-eject: deliver downstream via the src_of inverse map — each
         # target (buffer, vc) gathers from the unique upstream slot feeding
@@ -664,6 +800,15 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         sv = src_of.clamp(0, NC - 1).long()
         ident = (src_of >= 0) & (take(obf, sv) == b_ids[:, None]) \
             & (take(out_vc.reshape(G, -1), sv) == vcol)
+        if mc_on:
+            # unicast identity: the upstream slot still targets me at my
+            # VC; multicast copy identity: my feeder is a multicast air
+            # sender of my own group (one transmission, every copy fed)
+            mc_sv = take(is_mc.reshape(G, -1), sv)
+            ident = ((src_of >= 0) & mc_sv & ss.b_is_rx[..., None]
+                     & (mc_id >= 0)
+                     & (take(mc_id.reshape(G, -1), sv) == mc_id)) \
+                | (ident & ~mc_sv)
         incoming = ident & take(fwd.reshape(G, -1), sv)           # [G,B,V]
         d_in = (take(lat_t.reshape(G, -1), sv) - 1).clamp(0, DMAX - 1)
         pipe = pipe + (incoming[..., None] & (
@@ -679,7 +824,9 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             is_wl_fwd.flatten(1).any(-1),
             t + torch.where(is_wl_fwd, serv_t, 0).amax((1, 2)),
             st.wl_busy_until)
-        counts_into = st.counts_into + post[:, None] * _sum_i32(incoming, -1)
+        counted = _air_counted(ss, incoming, mc_id, mcid_c, b_ids) \
+            if mc_on else incoming
+        counts_into = st.counts_into + post[:, None] * _sum_i32(counted, -1)
         count_switch = st.count_switch + post * _sum_i32(fwd, (1, 2))
         ctrl_count = st.ctrl_count + post * _sum_i32(first_wl, (1, 2))
         wl_tx_flits = st.wl_tx_flits + post * _sum_i32(is_wl_fwd, (1, 2))
@@ -706,9 +853,24 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         # phase gate: a packet injects only once its phase is open
         ph_ok = (ss.n_phases == 0)[:, None] \
             | (take(ss.phases.reshape(G, -1), head) <= cur_phase[:, None])
+        outst = mem.get("outst", st.outst)
+        if mem_on:
+            # reply slots are born when the bank model services their
+            # request (rdy); requests gate on the in-flight window
+            birth_n = torch.minimum(
+                birth_n, take(mem["rdy"].reshape(G, -1), head))
+            opq = take(ss.mem_op.reshape(G, -1), head)
+            is_tx = (opq == 1) | (opq == 2)
+            ph_ok &= ~is_tx | (outst < ss.max_outst[:, None])
         can_new = (st.inj_vc < 0) & (st.q_head < K) & (birth_n <= t) \
             & ihas & ph_ok
         dst_n = take(ss.dests.reshape(G, -1), head)
+        if mc_on:
+            # multicast slots encode the group as dests = -(1 + m); the
+            # packet routes to the group's anchor and fans out at the air
+            mcv_n = torch.where(dst_n < 0, -(dst_n + 1), -1)      # [G,N]
+            dst_n = torch.where(
+                dst_n < 0, take(ss.mc_route, mcv_n.clamp(0, M - 1)), dst_n)
         r_oo, r_ob, r_owo, r_owl, r_oej = _route_fields(
             ss, ss.src_switch, dst_n)
 
@@ -736,6 +898,8 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         out_is_ej = iupd(out_is_ej, r_oej)
         out_vc = torch.where(icl, -1, out_vc)
         phase2 = torch.where(icl, False, phase2)
+        if mc_on:
+            mc_id = iupd(mc_id, mcv_n)
         attempt = torch.where(icl, 0, attempt)
         rcvd = torch.where(icl, 0, rcvd)
         sent = torch.where(icl, 0, sent)
@@ -743,6 +907,10 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         inj_vc = torch.where(can_new, ivc.to(i8), st.inj_vc)
         inj_pushed = torch.where(can_new, 0, st.inj_pushed)
         q_head = st.q_head + can_new.to(i32)
+        if mem_on:
+            outst = outst + (can_new & is_tx).to(i32)
+            mem["outst"] = outst
+            mem["outst_peak"] = torch.maximum(st.outst_peak, outst)
 
         # push one flit/cycle/core while there is space (cores write straight
         # into their injection buffer — no pipe, so no src_of either)
@@ -754,7 +922,14 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         rcvd = rcvd + pushc.to(i32)
         inj_pushed = inj_pushed + can_push.to(inj_pushed.dtype)
         flits_inj = st.flits_inj + post * _sum_i32(can_push, -1)
-        done = can_push & (inj_pushed >= ss.pkt_len[:, None])
+        # the source's current packet sits at q_head - 1 (claims advance
+        # the head); its per-slot length ends the push burst
+        if mem_on:
+            plen_cur = take(ss.lens.reshape(G, -1),
+                            n_ar * K + (q_head - 1).clamp(0, K - 1))
+        else:
+            plen_cur = ss.pkt_len[:, None]
+        done = can_push & (inj_pushed >= plen_cur)
         inj_vc = torch.where(done, -1, inj_vc)
 
         # ---- 4. receiver wake/sleep accounting ([17]) ---------------------
@@ -770,7 +945,7 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             pkt_src=pkt_src, pkt_idx=pkt_idx, pkt_dst=pkt_dst, born=born,
             out_o=out_o, out_buf=out_buf, out_wo=out_wo, out_is_wl=out_is_wl,
             out_is_ej=out_is_ej, out_vc=out_vc, phase2=phase2,
-            rcvd=rcvd, sent=sent, src_of=src_of,
+            rcvd=rcvd, sent=sent, src_of=src_of, mc_id=mc_id,
             attempt=attempt, pipe=pipe, busy_until=busy_until,
             wl_busy_until=wl_busy_until,
             q_head=q_head, inj_vc=inj_vc, inj_pushed=inj_pushed,
@@ -781,23 +956,138 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             count_switch=count_switch, ctrl_count=ctrl_count,
             wl_tx_flits=wl_tx_flits, wl_rx_flits=wl_rx_flits,
             awake_cycles=awake_cycles, sleep_cycles=sleep_cycles,
+            **mem,
         )
 
     return step
+
+
+def _air_counted(ss: SimStatic, incoming, mc_id, mcid_c, b_ids):
+    """The arrivals that count a link traversal (and so its energy).
+
+    Transmit energy is paid once per broadcast: of a multicast's copies in
+    the member rx buffers only the group's primary copy (lowest member WI)
+    counts the air traversal.  Every other arrival counts.
+    """
+    prim_buf = ss.rx0[:, None, None] + take(ss.mc_prim, mcid_c)
+    return incoming & ~((mc_id >= 0) & ss.b_is_rx[..., None]
+                        & (b_ids[:, None] != prim_buf))
+
+
+def _memory_block(ss: SimStatic, st: SimState, t: int, post, pkt_src,
+                  pkt_idx, tail, tail_ej, win2_ej, psrc_c, pidx_c,
+                  NCp1: int, BIGC: int) -> dict:
+    """The closed-loop memory terms of one cycle (``mem_on``).
+
+    (a) Request arrivals: the ejection winner at (stack switch, way =
+    channel) is the unique request entering (stack, ch) this cycle; its
+    bank starts service at ``max(t + 1, bank_busy)`` for ``t_row_hit`` or
+    ``t_row_miss`` cycles, and the completion cycle is written into the
+    paired reply slot's ``rdy`` by a one-assignment minimum (a gather over
+    the [Y, CH] winners, no scatter).  (b) Reply and ack tails ejecting at
+    the requester: AMAT, and the ``outst`` credit, found through the
+    per-(switch, way) ejection winners.  Returns the updated leaves.
+    """
+    G, N, K = ss.births.shape
+    S = ss.next_out.shape[1]
+    Yp, CH, BKp = st.bank_busy.shape[1:]
+    psrcf = pkt_src.reshape(G, -1)
+    pidxf = pkt_idx.reshape(G, -1)
+    tailf = tail.reshape(G, -1)
+    stack_c = ss.stack_sw.clamp(0, S - 1)                        # [G,Y]
+    code_yc = torch.gather(
+        win2_ej, 2, stack_c[:, None, :].expand(G, CH, Yp).long()
+    ).transpose(1, 2)                                            # [G,Y,CH]
+    valid = code_yc < BIGC
+    slot_yc = torch.where(valid, code_yc % NCp1, 0).long()
+    n_w = take(psrcf, slot_yc).clamp(0, N - 1)
+    k_w = take(pidxf, slot_yc).clamp(0, K - 1)
+    opw = torch.where(valid & take(tailf, slot_yc),
+                      take2(ss.mem_op, n_w, k_w), 0)             # [G,Y,CH]
+    is_rq = (opw == 1) | (opw == 2)
+    bank_w = take2(ss.mem_bank, n_w, k_w).clamp(0, BKp - 1)
+    row_w = take2(ss.mem_row, n_w, k_w)
+    bsel = bank_w.long()[..., None]
+    bb = torch.gather(st.bank_busy, 3, bsel)[..., 0]
+    br = torch.gather(st.bank_row, 3, bsel)[..., 0]
+    hit = is_rq & (br == row_w)
+    svc = torch.where(hit, ss.t_row_hit[:, None, None],
+                      ss.t_row_miss[:, None, None])
+    start = torch.clamp(bb, min=t + 1)
+    done = start + svc                                           # [G,Y,CH]
+    oneh = torch.arange(BKp, device=bank_w.device) == bank_w[..., None]
+    updm = is_rq[..., None] & oneh
+    bank_busy = torch.where(updm, done[..., None], st.bank_busy)
+    bank_row = torch.where(updm, row_w[..., None], st.bank_row)
+    # reply birth: one-assignment minimum into the paired slot's rdy
+    rrow = take2(ss.reply_row, n_w, k_w).clamp(0, N - 1)
+    rslot = take2(ss.reply_slot, n_w, k_w).clamp(0, K - 1)
+    rflat = torch.where(is_rq, rrow * K + rslot, -1).reshape(G, 1, -1)
+    m_rdy = torch.arange(N * K, dtype=i32,
+                         device=rflat.device)[None, :, None] == rflat
+    val = torch.where(m_rdy, done.reshape(G, 1, -1),
+                      int(NO_PKT)).amin(-1)                      # [G,N*K]
+    rdy = torch.minimum(st.rdy, val.reshape(G, N, K))
+    # per-stack service stats
+    rd_w = is_rq & (opw == 1)
+    wr_w = is_rq & (opw == 2)
+    pc = post[:, None]
+    postf = pc.to(f32)
+    data_w = torch.where(rd_w, take2(ss.lens, rrow, rslot),
+                         torch.where(wr_w, take2(ss.lens, n_w, k_w), 0))
+    # (b) reply/ack completion at the requester: AMAT + credit
+    op_all = take2(ss.mem_op, psrc_c, pidx_c)                    # [G,B,V]
+    is_rep = tail_ej & ((op_all == 3) | (op_all == 4))
+    rb = take2(ss.req_birth, psrc_c, pidx_c)
+    amat_ok = is_rep & (op_all == 3) & (rb >= ss.warmup[:, None, None])
+    # the requester's switch saw at most one ejection tail per way; check
+    # each winner against req_src
+    src_c = ss.src_switch.clamp(0, S - 1)                        # [G,N]
+    code_ns = torch.gather(
+        win2_ej, 2, src_c[:, None, :].expand(G, win2_ej.shape[1], N).long())
+    v_ns = code_ns < BIGC                                        # [G,EJ,N]
+    slot_ns = torch.where(v_ns, code_ns % NCp1, 0).long()
+    rep_ns = v_ns & take(is_rep.reshape(G, -1), slot_ns)
+    req_ns = take2(ss.req_src, take(psrcf, slot_ns).clamp(0, N - 1),
+                   take(pidxf, slot_ns).clamp(0, K - 1))
+    n_ids = torch.arange(N, dtype=i32, device=req_ns.device)
+    dec = _sum_i32(rep_ns & (req_ns == n_ids), 1)                # [G,N]
+    return dict(
+        rdy=rdy, bank_busy=bank_busy, bank_row=bank_row,
+        outst=st.outst - dec,
+        mem_reads=st.mem_reads + pc * _sum_i32(rd_w, -1),
+        mem_writes=st.mem_writes + pc * _sum_i32(wr_w, -1),
+        mem_row_hits=st.mem_row_hits + pc * _sum_i32(hit, -1),
+        mem_q_sum=st.mem_q_sum + postf * torch.where(
+            is_rq, (start - (t + 1)).to(f32), 0.0).sum(-1),
+        mem_svc_sum=st.mem_svc_sum + postf * torch.where(
+            is_rq, svc.to(f32), 0.0).sum(-1),
+        mem_flits=st.mem_flits + pc * _sum_i32(data_w, -1),
+        amat_sum=st.amat_sum + post * torch.where(
+            amat_ok, (t - rb + 1).to(f32), 0.0).sum((1, 2)),
+        amat_pkts=st.amat_pkts + post * _sum_i32(amat_ok, (1, 2)),
+    )
 
 
 # --------------------------------------------------------------------------
 # drivers
 # --------------------------------------------------------------------------
 
-def run_cycles(ss: SimStatic, st: SimState, t0: int, t1: int,
-               B: int) -> SimState:
+def _has_groups(ss: SimStatic) -> bool:
+    """``mc_on`` for lanes ``ss``: does any lane's table hold a multicast
+    group (one host sync)."""
+    return bool(ss.mc_member.any())
+
+
+def run_cycles(ss: SimStatic, st: SimState, t0: int, t1: int, B: int,
+               mem_on: bool = False) -> SimState:
     """Step lane-leading ``st`` through cycles ``[t0, t1)``, no freeze.
 
     The monolithic driver's loop, also used to continue from a carried
-    state (``repro_torch.carry``).
+    state (``repro_torch.carry``).  ``mem_on`` as in ``make_step``; the
+    multicast terms run when any lane has a multicast group.
     """
-    step = make_step(B)
+    step = make_step(B, mem_on=mem_on, mc_on=_has_groups(ss))
     d = derive(ss, B)
     with torch.no_grad():
         for t in range(t0, t1):
@@ -805,12 +1095,13 @@ def run_cycles(ss: SimStatic, st: SimState, t0: int, t1: int,
     return st
 
 
-def _scan_point(ss: SimStatic, st: SimState, cycles: int, B: int) -> SimState:
+def _scan_point(ss: SimStatic, st: SimState, cycles: int, B: int,
+                mem_on: bool) -> SimState:
     """Monolithic driver: every lane steps exactly ``cycles`` cycles.
 
     Kept as a differential oracle for the chunked driver.
     """
-    st = run_cycles(ss, st, 0, cycles, B)
+    st = run_cycles(ss, st, 0, cycles, B, mem_on)
     c = torch.full_like(st.cycles_run, cycles)
     return st._replace(cycles_run=c, drain_cycle=c.clone())
 
@@ -831,10 +1122,20 @@ class PackedSim:
     phy: PhyParams
     sim: SimParams
     dims: dict = dataclasses.field(default_factory=dict)
+    mem_on: bool = False      # closed-loop memory path in the step
+    mc_on: bool = False       # the table has multicast groups
 
     def shape_key(self) -> tuple:
-        """Hashable signature of every padded array shape (batch grouping)."""
-        return tuple((k, tuple(v.shape)) for k, v in self.ss._asdict().items())
+        """Hashable signature of the step program and of every padded
+        array shape (batch grouping).
+
+        ``mem_on`` is part of the key as in the reference: it selects
+        another step program.  So is ``mc_on``, the port's own: a point
+        without multicast groups keeps the open-loop program even when it
+        shares its dims with a multicast trace.
+        """
+        return (("mem_on", self.mem_on), ("mc_on", self.mc_on)) + tuple(
+            (k, tuple(v.shape)) for k, v in self.ss._asdict().items())
 
 
 def pack_dims(topo: Topology, tt: TrafficTable,
@@ -886,17 +1187,13 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
 
     The host arithmetic is the reference's, in numpy; the tables move to
     ``device`` at the end.  ``floors`` raises padded dims so heterogeneous
-    points share one shape (padding is semantically inert).  Tables with
-    memory ops, multicast groups or phases, and a ``phy_spec``, raise
-    ``NotImplementedError``: those engine paths are not ported yet.
+    points share one shape (padding is semantically inert).  Trace tables
+    (phases, multicast groups) and memory tables (closed-loop
+    request/reply) pack as in the reference; a ``phy_spec`` raises
+    ``NotImplementedError``: the lossy-PHY path is not ported yet.
     """
     from repro_torch.phy.rates import pack_link_state
     dev = _device.resolve(device)
-    if getattr(tt, "mem_op", None) is not None:
-        raise NotImplementedError("closed-loop memory tables: ROADMAP A6")
-    if tt.n_mc or tt.n_phases:
-        raise NotImplementedError("trace tables (multicast, phases): "
-                                  "ROADMAP A5")
     if phy_spec is not None:
         raise NotImplementedError("lossy PHY: ROADMAP A7")
     fl = floors or {}
@@ -978,8 +1275,9 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
             if int(b_dst[b]) in wi_set:
                 b_depth[b] = max(int(b_depth[b]), phy.pkt_flits)
 
-    # lossy PHY: inert here (phy_spec is None), kept so the buffer tables
-    # go through the same helper as the reference's
+    # lossy PHY: inert here (phy_spec is None); the shared helper sets
+    # rx_hold (store-and-forward receivers) for tables with multicast
+    # groups and deepens their rx buffers, as in the reference
     _, _, rx_hold = pack_link_state(
         topo, phy, tt, phy_spec, b_dst, b_depth, b_epb, rx0)
 
@@ -1036,15 +1334,50 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
     dests = np.zeros((N, K), np.int32)
     dests[:, :tt.k] = tt.dests
 
-    # trace and memory tables: empty/inert for open-loop tables
-    P = max(_bucket(0, 8), fl.get("P", 0))
-    M = max(_bucket(0, 8), fl.get("M", 0))
-    dram = DEFAULT_DRAM
+    # trace tables: phase barriers + multicast groups (all-zero semantics
+    # for the synthetic open-loop generators)
+    Pn = tt.n_phases
+    Mn = tt.n_mc
+    P = max(_bucket(Pn, 8), fl.get("P", 0))
+    M = max(_bucket(Mn, 8), fl.get("M", 0))
+    phases = np.zeros((N, K), np.int32)
+    phase_need = np.zeros(P, np.int32)
+    mc_member = np.zeros((M, WMAX), bool)
+    mc_dst = np.zeros((M, WMAX), np.int32)
+    mc_route = np.zeros(M, np.int32)
+    mc_prim = np.zeros(M, np.int32)
+    if Pn:
+        phases[:, :tt.k] = tt.phases
+        phase_need[:Pn] = tt.phase_need
+    if Mn:
+        mc_member[:Mn] = tt.mc_member
+        mc_dst[:Mn] = np.clip(tt.mc_dst, 0, None)    # -1 pad, member-masked
+        mc_route[:Mn] = tt.mc_route
+        mc_prim[:Mn] = np.argmax(tt.mc_member, axis=1)
+        assert tt.mc_member.shape[1] == WMAX
+        assert tt.mc_member[:Mn].any(axis=1).all(), "empty multicast group"
+
+    # memory tables (closed-loop request/reply; inert for open-loop tables)
+    mem_on = getattr(tt, "mem_op", None) is not None
+    dram = (getattr(tt, "dram", None) or DEFAULT_DRAM) if mem_on \
+        else DEFAULT_DRAM
     Y = max(_bucket(topo.n_mem, 4), fl.get("Y", 0))
+    BK = max(_bucket(dram.n_banks if mem_on else 1, 8), fl.get("BK", 0))
+    NK = (N, K)
+    lens = np.full(NK, phy.pkt_flits, np.int32)
+    mem = {k: np.zeros(NK, np.int32)
+           for k in ("mem_op", "mem_ch", "mem_bank", "mem_row")}
+    mem.update({k: np.full(NK, -1, np.int32)
+                for k in ("reply_row", "reply_slot", "req_src")})
+    mem["req_birth"] = np.full(NK, NO_PKT, np.int32)
+    if mem_on:
+        assert dram.n_banks <= BK
+        lens[:, :tt.k] = tt.lens
+        for k in mem:
+            mem[k][:, :tt.k] = getattr(tt, k)
     stack_sw = np.full(Y, S - 1, np.int32)
     stack_sw[:topo.n_mem] = np.nonzero(topo.is_mem)[0]
-    BK = max(_bucket(1, 8), fl.get("BK", 0))
-    NK = (N, K)
+    max_outst = dram.max_outstanding if mem_on else 2**30
 
     def i32s(x):
         return np.int32(x)
@@ -1068,21 +1401,13 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
         wl_single=np.bool_(medium == "single"),
         wl_rx_busy=np.bool_(medium != "crossbar"),
         sleepy=np.bool_(bool(sim.sleepy_rx)),
-        phases=np.zeros(NK, np.int32), phase_need=np.zeros(P, np.int32),
-        n_phases=i32s(0),
-        mc_member=np.zeros((M, WMAX), bool),
-        mc_dst=np.zeros((M, WMAX), np.int32),
-        mc_route=np.zeros(M, np.int32), mc_prim=np.zeros(M, np.int32),
-        lens=np.full(NK, phy.pkt_flits, np.int32),
-        mem_op=np.zeros(NK, np.int32), mem_ch=np.zeros(NK, np.int32),
-        mem_bank=np.zeros(NK, np.int32), mem_row=np.zeros(NK, np.int32),
-        reply_row=np.full(NK, -1, np.int32),
-        reply_slot=np.full(NK, -1, np.int32),
-        req_src=np.full(NK, -1, np.int32),
-        req_birth=np.full(NK, NO_PKT, np.int32),
+        phases=phases, phase_need=phase_need, n_phases=i32s(Pn),
+        mc_member=mc_member, mc_dst=mc_dst, mc_route=mc_route,
+        mc_prim=mc_prim,
+        lens=lens, **mem,
         stack_sw=stack_sw,
         t_row_hit=i32s(dram.t_row_hit), t_row_miss=i32s(dram.t_row_miss),
-        max_outst=i32s(2**30),
+        max_outst=i32s(max_outst),
         wl_serv=np.ones((WMAX, WMAX), np.int32),
         wl_perq=np.zeros((WMAX, WMAX), np.int32),
         rx_hold=np.bool_(rx_hold), max_retx=i32s(1),
@@ -1102,7 +1427,7 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
             "M": M, "P": P, "Y": Y, "BK": BK}
     return PackedSim(ss=ss, B=B, n_cores=topo.n_cores, Lw=Lw,
                      n_inj=n_inj, topo=topo, rt=rt, phy=phy, sim=sim,
-                     dims=dims)
+                     dims=dims, mem_on=mem_on, mc_on=Mn > 0)
 
 
 # --------------------------------------------------------------------------
@@ -1110,32 +1435,34 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
 # --------------------------------------------------------------------------
 
 def _state_dims(ps: PackedSim) -> tuple:
-    """(B, N, P, Y) for ``init_state`` from a packed point."""
-    return (ps.B, int(ps.ss.births.shape[0]), int(ps.ss.phase_need.shape[0]),
-            int(ps.ss.stack_sw.shape[0]))
+    """(B, N, P, K, Y, BK) for ``init_state`` from a packed point."""
+    N, K = ps.ss.births.shape
+    return (ps.B, int(N), int(ps.ss.phase_need.shape[0]), int(K),
+            int(ps.ss.stack_sw.shape[0]), ps.dims.get("BK", 1))
 
 
 def run_lanes(ss: SimStatic, st: SimState, B: int, budgets: Sequence[int],
-              driver: str = "chunked") -> SimState:
+              driver: str = "chunked", mem_on: bool = False) -> SimState:
     """Drive lane-leading ``ss``/``st`` to each lane's budget.
 
     ``budgets`` are the lanes' ``ss.cycles`` on the host.
     ``driver="monolithic"`` runs the fixed-length oracle (one shared
-    budget).
+    budget).  ``mem_on`` as in ``make_step``; the multicast terms run
+    when any lane has a multicast group.
     """
     if driver == "monolithic":
         if len(set(budgets)) != 1:
             raise ValueError(
                 "monolithic driver needs one shared cycle budget; got "
                 f"{sorted(set(budgets))}")
-        return _scan_point(ss, st, budgets[0], B)
+        return _scan_point(ss, st, budgets[0], B, mem_on)
     if driver != "chunked":
         raise ValueError(f"unknown driver {driver!r}")
-    step = make_step(B)
+    step = make_step(B, mem_on=mem_on, mc_on=_has_groups(ss))
     d = derive(ss, B)
     with torch.no_grad():
         return chunked.run_chunked(
-            lambda s, t: step(ss, d, s, t), ss, st, budgets)
+            lambda s, t: step(ss, d, s, t), ss, st, budgets, mem_on)
 
 
 def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
@@ -1160,9 +1487,10 @@ def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
     ss = SimStatic(*(torch.stack(xs) for xs in zip(*(ps.ss for ps in pss))))
     ss = ss._replace(cycles=torch.tensor(budgets, dtype=i32,
                                          device=ss.cycles.device))
-    st = init_state(*_state_dims(pss[0]), lanes=len(pss),
+    ps0 = pss[0]
+    st = init_state(*_state_dims(ps0), mem_on=ps0.mem_on, lanes=len(pss),
                     device=ss.cycles.device)
-    return run_lanes(ss, st, pss[0].B, budgets, driver)
+    return run_lanes(ss, st, ps0.B, budgets, driver, ps0.mem_on)
 
 
 def run(ps: PackedSim, cycles: int | None = None,
@@ -1172,12 +1500,13 @@ def run(ps: PackedSim, cycles: int | None = None,
     return SimState(*(x[0] for x in out))
 
 
-def run_from(ss: SimStatic, st: SimState,
-             driver: str = "chunked") -> SimState:
+def run_from(ss: SimStatic, st: SimState, driver: str = "chunked",
+             mem_on: bool = False) -> SimState:
     """Run one point from a given (e.g. carried) state, cycle 0 to
-    ``ss.cycles``; ``ss``/``st`` and the result have no lane axis."""
+    ``ss.cycles``; ``ss``/``st`` and the result have no lane axis.
+    ``mem_on`` must be the flag the state was made with."""
     B = int(ss.b_dst.shape[0])
     out = run_lanes(SimStatic(*(x[None] for x in ss)),
                     SimState(*(x[None] for x in st)), B,
-                    [int(ss.cycles)], driver)
+                    [int(ss.cycles)], driver, mem_on)
     return SimState(*(x[0] for x in out))

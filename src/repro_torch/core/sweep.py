@@ -8,7 +8,9 @@ port of ``repro.core.sweep``.
   sources N; within a group the pack dims are harmonized (every point
   packed with the group's max dims as floors — padding is semantically
   inert) so that, e.g., the three fabrics of one system size share one
-  batch.  Cycle budgets and warm-ups are per-lane data.
+  batch.  Cycle budgets and warm-ups are per-lane data.  Points whose
+  step programs differ (``mem_on``; with or without multicast groups)
+  split into separate batches by ``PackedSim.shape_key``.
 
 Results equal ``[run_point(...) for each point]`` exactly.  The reference's
 ``devices`` argument (``pmap`` sharding over host devices) has no
@@ -44,9 +46,12 @@ def _cached_system(n_chips: int, n_mem: int, fabric: Fabric, phy: PhyParams,
 class SweepPoint:
     """One evaluation point of a figure grid (run_point's argument list).
 
-    Fields as in ``repro.core.sweep.SweepPoint``.  ``trace``, ``mem``,
-    ``closed_loop`` and ``phy_spec`` points raise ``NotImplementedError``
-    in the port (ROADMAP A5-A7).
+    Fields as in ``repro.core.sweep.SweepPoint``: ``trace`` (a
+    ``workloads.Trace``) makes a phase-barrier trace point, ``mem`` (a
+    ``memory.MemSweepSpec``) a closed-loop memory point, and
+    ``closed_loop`` turns an ``app`` point's memory packets into round
+    trips.  ``phy_spec`` points raise ``NotImplementedError`` in the port
+    (ROADMAP A7).
     """
 
     n_chips: int
@@ -73,9 +78,18 @@ def _build_point(p: SweepPoint):
     if p.trace is not None:
         tt = traffic.from_trace(topo, p.trace, p.phy.pkt_flits,
                                 p.phy.flit_bits, dram=p.dram)
-    elif p.mem is not None:
-        raise NotImplementedError("closed-loop memory: ROADMAP A6")
-    elif p.app is None:
+        label = p.name or f"{topo.name}/{p.trace.name}"
+        return topo, rt, tt, label
+    if p.mem is not None:
+        from repro_torch.memory import closed_loop_uniform
+        tt = closed_loop_uniform(
+            topo, p.mem.load, p.sim.cycles, p.phy.pkt_flits,
+            dram=p.mem.dram, read_frac=p.mem.read_frac,
+            hot_stack_frac=p.mem.hot_stack_frac, seed=p.sim.seed)
+        label = p.name or (f"{topo.name}/memcl/load={p.mem.load}"
+                           f"/mo={p.mem.dram.max_outstanding}")
+        return topo, rt, tt, label
+    if p.app is None:
         tt = traffic.uniform_random(topo, p.load, p.p_mem, p.sim.cycles,
                                     p.phy.pkt_flits, seed=p.sim.seed)
     else:

@@ -11,9 +11,8 @@ free of dynamic allocation:
 - ``application``: SynFull-style [20] two-state Markov-modulated processes
   (steady/burst) with per-benchmark memory intensity and hotspot skew,
   standing in for the PARSEC/SPLASH2 traces of §IV.D (DESIGN.md §7.2).
-- ``from_trace`` (not ported yet; raises): fabric-aware lowering of a
-  ``workloads.Trace`` (phase-structured ML collective schedules) into a
-  phase-gated table.  Phases
+- ``from_trace``: fabric-aware lowering of a ``workloads.Trace`` (phase-
+  structured ML collective schedules) into a phase-gated table.  Phases
   become dependency barriers enforced by the simulator; multicast messages
   become *one* shared-medium transmission on wireless fabrics (receiver-set
   delivery, the paper's broadcast advantage) and replicated unicasts on
@@ -54,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.constants import WMAX as MC_WMAX   # multicast mask width
 from repro_torch.core.topology import Topology
 
 
@@ -207,10 +207,154 @@ def from_trace(topo: Topology, trace, pkt_flits: int, flit_bits: int = 32,
                bytes_scale: float = 1.0, dram=None) -> TrafficTable:
     """Lower a ``workloads.Trace`` onto ``topo`` as a phase-gated table.
 
-    Trace workloads (phase barriers, multicast groups) are not ported
-    yet: the port's cycle step has no multicast path.
+    Fabric-aware multicast lowering (the tentpole semantics):
+
+    - wireline fabrics (no WIs): a multicast to D nodes is D replicated
+      unicast packet streams — every copy pays its full wire path;
+    - wireless fabric: destinations on the sender's own chip stay local
+      mesh unicasts; remote destinations are grouped by *serving WI*
+      (``Topology.serving_wi``) into one multicast group — the packet
+      crosses the shared medium once and is delivered to every member WI's
+      rx buffer.  Each member delivers to one representative destination
+      switch; further same-cluster destinations are relayed by the
+      representative in an appended ``<label>/fanout`` phase (local mesh
+      traffic on every fabric, so the comparison stays fair).
+
+    Memory ops: a ``read``/``write`` message becomes one
+    request/reply transaction per payload packet, lowered through the
+    ``DeviceMap`` residency mapping: the request targets the stack's
+    base-logic-die switch with deterministic (channel, bank, row)
+    coordinates — identical across fabrics — and the service-gated reply
+    slot lives in the stack's per-channel source row.  Both ejections
+    (request at the stack, reply at the device) count toward the phase's
+    barrier, so a phase completes only when its round trips complete.
+
+    Sources are all logical devices followed by all memory stacks, in that
+    order, regardless of whether they send — keeping N identical across
+    the three fabrics so one trace's three points share a sweep batch.
+    Traces with memory ops append (MEM_CH - 1) extra per-channel reply
+    rows per stack after that prefix (the stack's own row doubles as its
+    channel-0 reply row); traces without them keep the historical layout.
     """
-    raise NotImplementedError("trace workloads: ROADMAP A5")
+    from repro_torch.memory.model import DEFAULT_DRAM, MEM_CH
+    from repro_torch.memory.table import MEM_READ, MEM_WRITE, MemTableBuilder
+    from repro_torch.workloads.mapping import DeviceMap
+    from repro_torch.workloads.trace import is_mem_node, mem_stack
+
+    dm = DeviceMap(topo, trace.n_devices)
+    n_dev = trace.n_devices
+    n_mem = len(dm.mem_switch)
+    has_mem = any(m.is_mem_op for p in trace.phases for m in p.messages)
+    dram = dram or DEFAULT_DRAM
+    src_switch = [np.asarray(dm.dev_switch), np.asarray(dm.mem_switch)]
+    if has_mem:         # per-channel reply rows (stack row = channel 0)
+        src_switch.append(np.repeat(dm.mem_switch, MEM_CH - 1))
+    src_switch = np.concatenate(src_switch).astype(np.int32)
+
+    def src_index(node: int) -> int:
+        return n_dev + mem_stack(node) if is_mem_node(node) else node
+
+    def mem_row_of(stack: int, ch: int) -> int:
+        if ch == 0:
+            return n_dev + stack
+        return n_dev + n_mem + stack * (MEM_CH - 1) + (ch - 1)
+
+    assert topo.n_wi <= MC_WMAX
+    pkt_bytes = pkt_flits * flit_bits / 8
+    use_wl = topo.n_wi > 0
+    serving = dm.serving_wi
+    b = MemTableBuilder(src_switch, dm.mem_switch, pkt_flits, dram,
+                        mem_row_of=mem_row_of)
+    phase_need: list[int] = []
+    phase_labels: list[str] = []
+    mc_key_to_id: dict = {}
+    mc_groups: list[tuple] = []     # (members, {wi: dst_switch})
+
+    def emit(si: int, pid: int, dest: int, npk: int) -> None:
+        for _ in range(npk):
+            b.plain(si, dest, phase=pid)
+
+    for ph in trace.phases:
+        pid = len(phase_need)
+        need = 0
+        relays: list[tuple] = []
+        for msg in ph.messages:
+            npk = max(1, int(np.ceil(msg.bytes_ * bytes_scale / pkt_bytes)))
+            si = src_index(msg.src)
+            if msg.is_mem_op:
+                # one round trip per payload packet; coordinates are a
+                # deterministic hash of (device, stack, packet) so every
+                # fabric sees the identical address stream
+                stack = mem_stack(msg.dsts[0])
+                op = MEM_READ if msg.op == "read" else MEM_WRITE
+                rdst = dm.node_switch(msg.src)
+                for j in range(npk):
+                    h = msg.src * 40503 + stack * 9176 + j
+                    ch = h % MEM_CH
+                    bank = (h // MEM_CH) % dram.n_banks
+                    drow = (h // (MEM_CH * dram.n_banks)) % dram.n_rows
+                    b.request(si, op, stack, ch, bank, drow,
+                              reply_dest=rdst, phase=pid)
+                need += 2 * npk
+                continue
+            s_chip = topo.chip_of[dm.node_switch(msg.src)]
+            remote = []
+            for d in msg.dsts:
+                if use_wl and len(msg.dsts) > 1 \
+                        and topo.chip_of[dm.node_switch(d)] != s_chip:
+                    remote.append(d)
+                else:
+                    emit(si, pid, dm.node_switch(d), npk)
+                    need += npk
+            if len(remote) == 1:
+                emit(si, pid, dm.node_switch(remote[0]), npk)
+                need += npk
+            elif remote:
+                wi_map: dict[int, list] = {}
+                for d in remote:
+                    w = int(serving[dm.node_switch(d)])
+                    assert w >= 0, "remote multicast dst without serving WI"
+                    wi_map.setdefault(w, []).append(d)
+                members = tuple(sorted(wi_map))
+                reps = {w: dm.node_switch(wi_map[w][0]) for w in members}
+                key = (members, tuple(reps[w] for w in members))
+                m = mc_key_to_id.get(key)
+                if m is None:
+                    m = mc_key_to_id[key] = len(mc_groups)
+                    mc_groups.append((members, reps))
+                emit(si, pid, -(1 + m), npk)
+                need += npk * len(members)
+                for w in members:
+                    for d in wi_map[w][1:]:
+                        relays.append((wi_map[w][0], d, npk))
+        phase_need.append(need)
+        phase_labels.append(ph.label)
+        if relays:
+            pid2 = len(phase_need)
+            need2 = 0
+            for rep, d, npk in relays:
+                emit(src_index(rep), pid2, dm.node_switch(d), npk)
+                need2 += npk
+            phase_need.append(need2)
+            phase_labels.append(ph.label + "/fanout")
+
+    M = len(mc_groups)
+    mc_member = np.zeros((max(M, 1), MC_WMAX), bool)
+    mc_dst = np.full((max(M, 1), MC_WMAX), -1, np.int32)
+    mc_route = np.zeros(max(M, 1), np.int32)
+    for m, (members, reps) in enumerate(mc_groups):
+        for w in members:
+            mc_member[m, w] = True
+            mc_dst[m, w] = reps[w]
+        mc_route[m] = topo.wi_switch[members[0]]
+
+    return b.build(
+        offered_load=0.0,
+        phase_need=np.asarray(phase_need, np.int32),
+        phase_labels=phase_labels,
+        mc_member=mc_member if M else None,
+        mc_dst=mc_dst if M else None,
+        mc_route=mc_route if M else None)
 
 
 def application(topo: Topology, model: AppTrafficModel, cycles: int,

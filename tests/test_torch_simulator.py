@@ -173,6 +173,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_step_paths_raise():
-    for flag in ("mem_on", "phy_on", "drift_on", "reselect"):
+    for flag in ("phy_on", "drift_on", "reselect"):
         with pytest.raises(NotImplementedError):
             tsim.make_step(64, **{flag: True})

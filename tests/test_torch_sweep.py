@@ -1,17 +1,17 @@
 """The port's sweep entry points end to end on the CPU.
 
-``run_point(device="cpu")`` on the four open-loop golden points must match
-the committed goldens (integers exact, floats rel 1e-6 — the bound of
-``tests/test_golden_metrics.py``: the energy sums run in another order
-than XLA's); ``run_sweep_batched`` must equal a ``run_point`` loop
-exactly; points whose engine paths are not ported must raise.
+``run_point(device="cpu")`` on the five golden points (four open-loop,
+one closed-loop memory point) must match the committed goldens (integers
+exact, floats rel 1e-6 — the bound of ``tests/test_golden_metrics.py``:
+the energy sums run in another order than XLA's); ``run_sweep_batched``
+must equal a ``run_point`` loop exactly; lossy-PHY points, whose engine
+path is not ported, must raise.
 """
 import dataclasses
 import json
 import math
 import pathlib
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,6 +25,7 @@ from repro_torch.core.routing import compute_routing  # noqa: E402
 from repro_torch.core.sweep import (SweepPoint, latency_sweep,  # noqa: E402
                                     run_point, run_sweep_batched)
 from repro_torch.core.topology import build_xcym  # noqa: E402
+from repro_torch.memory import MemSweepSpec  # noqa: E402
 from repro_torch.phy.channel import PhySweepSpec  # noqa: E402
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
@@ -35,10 +36,16 @@ GOLDENS = {
     "substrate_4c4m_load02": dict(fabric=Fabric.SUBSTRATE, load=0.2),
     "app_canneal_wireless_4c4m": dict(fabric=Fabric.WIRELESS, load=1.0,
                                       app="canneal"),
+    # closed-loop memory: the golden's load is the MemSweepSpec's
+    "memcl_wireless_4c4m_load03": dict(fabric=Fabric.WIRELESS, load=0.0,
+                                       mem=MemSweepSpec(load=0.3)),
 }
 INT_FIELDS = ("pkts_delivered", "flits_delivered", "flits_injected")
 FLOAT_FIELDS = ("offered_load", "throughput", "bw_gbps_core",
                 "avg_pkt_latency", "avg_pkt_energy_pj", "energy_pj_bit")
+MEM_FIELDS = ("amat_cycles", "amat_reads", "mem_reads", "mem_writes",
+              "mem_row_hit_rate", "mem_queue_cycles", "mem_service_cycles",
+              "mem_bw_gbps", "outst_peak")
 
 
 @pytest.mark.parametrize("name", list(GOLDENS))
@@ -55,6 +62,10 @@ def test_run_point_matches_golden(name):
     assert set(m.energy_breakdown) == set(want["energy_breakdown"])
     for k, v in want["energy_breakdown"].items():
         assert m.energy_breakdown[k] == pytest.approx(v, rel=1e-6), (name, k)
+    assert ("memory" in want) == bool(m.mem_reads or m.mem_writes)
+    for f in MEM_FIELDS if "memory" in want else ():
+        assert float(getattr(m, f)) == pytest.approx(want["memory"][f],
+                                                     rel=1e-6), (name, f)
 
 
 def _same(a, b) -> bool:
@@ -95,30 +106,6 @@ def test_latency_sweep_is_one_batch_of_points():
 def system():
     topo = build_xcym(4, 4, Fabric.WIRELESS)
     return topo, compute_routing(topo)
-
-
-def test_pack_rejects_memory_tables(system):
-    topo, rt = system
-    tt = traffic.application(topo, traffic.APP_MODELS["canneal"], 200, 64,
-                             closed_loop=True)
-    assert tt.mem_op is not None
-    with pytest.raises(NotImplementedError, match="A6"):
-        simulator.pack(topo, rt, tt, topo.phy, SimParams(cycles=200),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_point(4, 4, Fabric.WIRELESS, 0.0, mem=object(), device="cpu")
-
-
-def test_pack_rejects_trace_tables(system):
-    topo, rt = system
-    tt = traffic.uniform_random(topo, 0.2, 0.2, 200, 64)
-    tt.phases = np.zeros_like(tt.births)
-    tt.phase_need = np.ones(1, np.int32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        simulator.pack(topo, rt, tt, topo.phy, SimParams(cycles=200),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        traffic.from_trace(topo, object(), 64)
 
 
 def test_pack_rejects_phy_points(system):

@@ -1,0 +1,121 @@
+"""Comparisons shared by the port's differential tests (``test_torch_*``).
+
+- ``assert_states_equal``: every ``SimState`` leaf (name, dtype, shape and
+  value) of the port equals the JAX engine's exactly;
+- ``assert_metrics_equal``: two ``Metrics`` agree field by field —
+  integers (and lists of them) exactly, floats within rel 1e-6 (the energy
+  terms are float32 sums taken in another order than XLA's), NaN = NaN;
+- ``assert_tables_equal``: two host-side dataclasses (traffic tables,
+  traces, device maps) are equal array for array, dtypes included.
+"""
+import dataclasses
+import enum
+import math
+
+import numpy as np
+
+REL = 1e-6
+
+
+def np_tree(tree) -> dict:
+    """A NamedTuple of (JAX or torch) arrays -> ``{name: np.ndarray}``."""
+    out = {}
+    for k, v in tree._asdict().items():
+        out[k] = v.detach().cpu().numpy() if hasattr(v, "detach") \
+            else np.asarray(v)
+    return out
+
+
+def assert_states_equal(want: dict, got: dict, skip=()):
+    assert list(got) == list(want)
+    for k in want:
+        if k in skip:
+            continue
+        assert got[k].dtype == want[k].dtype, (k, got[k].dtype, want[k].dtype)
+        assert got[k].shape == want[k].shape, (k, got[k].shape, want[k].shape)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _close(a, b, path):
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, sorted(a), sorted(b))
+        for k in a:
+            _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), (path, len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    elif isinstance(a, bool) or isinstance(a, (int, np.integer, str)):
+        assert a == b, (path, a, b)
+    elif isinstance(a, float):
+        assert (math.isnan(a) and math.isnan(b)) or \
+            math.isclose(a, b, rel_tol=REL, abs_tol=0.0), (path, a, b)
+    else:
+        assert a == b, (path, a, b)
+
+
+def assert_metrics_equal(got, want):
+    """``got``/``want``: ``Metrics`` or ``dataclasses.asdict`` of one."""
+    g = got if isinstance(got, dict) else dataclasses.asdict(got)
+    w = want if isinstance(want, dict) else dataclasses.asdict(want)
+    _close(w, g, "metrics")
+
+
+def _same(a, b, what):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype, (what, a.dtype, b.dtype)
+        assert a.shape == b.shape, (what, a.shape, b.shape)
+        assert a.tobytes() == b.tobytes(), what
+    elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+        assert type(a).__name__ == type(b).__name__, what
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name),
+                  f"{what}.{f.name}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), (what, len(a), len(b))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+    elif isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, enum.Enum):
+        assert int(a) == int(b), what
+    else:
+        assert a == b, (what, a, b)
+
+
+def assert_tables_equal(a, b, what="table"):
+    _same(a, b, what)
+
+
+# ---- engine helpers: carry JAX-packed points and states into the port
+# (only the tests import both packages)
+
+
+def port_packed(ps):
+    """A JAX ``PackedSim`` as the port's (tables carried to the CPU)."""
+    from repro_torch import carry
+    from repro_torch.core import simulator as tsim
+    return tsim.PackedSim(
+        ss=carry.static_from_numpy(np_tree(ps.ss), "cpu"), B=ps.B,
+        n_cores=ps.n_cores, Lw=ps.Lw, n_inj=ps.n_inj, topo=ps.topo,
+        rt=ps.rt, phy=ps.phy, sim=ps.sim, dims=ps.dims, mem_on=ps.mem_on,
+        mc_on=bool(np.asarray(ps.ss.mc_member).any()))
+
+
+def port_continue(pss, sts, t0: int, t1: int) -> list:
+    """Carry JAX-packed points and their states at cycle ``t0`` into the
+    port, step them as lanes of one batch to ``t1``; numpy states."""
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.core import simulator as tsim
+    ss = [carry.static_from_numpy(np_tree(ps.ss), "cpu") for ps in pss]
+    st = [carry.state_from_numpy(np_tree(s), "cpu") for s in sts]
+    ss = tsim.SimStatic(*(torch.stack(x) for x in zip(*ss)))
+    st = tsim.SimState(*(torch.stack(x) for x in zip(*st)))
+    out = np_tree(tsim.run_cycles(ss, st, t0, t1, pss[0].B,
+                                  pss[0].mem_on))
+    return [{k: v[g] for k, v in out.items()} for g in range(len(pss))]
