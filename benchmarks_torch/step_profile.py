@@ -1,6 +1,7 @@
 """Where the port's cycle step spends its time on the card.
 
-    python3 benchmarks_torch/step_profile.py [--cycles 1024] [--mem | --trace]
+    python3 benchmarks_torch/step_profile.py [--cycles 1024]
+        [--mem | --trace | --phy [--living]]
 
 Packs one batch of lanes at paper size, as ``run_sweep_batched`` does:
 
@@ -11,6 +12,11 @@ Packs one batch of lanes at paper size, as ``run_sweep_batched`` does:
   and canneal closed-loop), the ``mem_on`` program;
 - ``--trace``: fig7's gemma-7b one-shot trace on the wireless fabric (one
   lane, multicast groups), the multicast program;
+- ``--phy``: fig9's quality grid on the wireless fabric
+  (``tests/torch_fixtures/fig9_reference.json``'s cases: six link budgets
+  x three rate policies, 18 lanes), the lossy-PHY (``phy_on``) program;
+- ``--phy --living``: fig9's drift sweep's online arm at 2, 4 and 6 dB
+  (three lanes), the living program with drift and re-selection;
 
 and reports:
 
@@ -46,7 +52,12 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--mem", action="store_true")
     mode.add_argument("--trace", action="store_true")
+    mode.add_argument("--phy", action="store_true")
+    ap.add_argument("--living", action="store_true",
+                    help="with --phy: the drift sweep's online lanes")
     args = ap.parse_args()
+    if args.living and not args.phy:
+        ap.error("--living needs --phy")
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from repro_torch.core import simulator, sweep
@@ -61,6 +72,18 @@ def main() -> int:
         fx = figures.fixture("fig8_reference.json")
         sim = SimParams(**fx["sim"])
         pts = [figures.fig8_point(p["case"], sim) for p in fx["points"]]
+    elif args.phy:
+        fx = figures.fixture("fig9_reference.json")
+        sim = SimParams(**fx["sim"])
+        if args.living:
+            pts = [figures.fig9_drift_point(p["case"], sim, fx["load"],
+                                            fx["p_mem"], fx["drift_budget_db"])
+                   for p in fx["drift"] if p["case"]["arm"] == "online"
+                   and p["case"]["amp_db"] > 0]
+        else:
+            pts = [figures.fig9_quality_point(p["case"], sim, fx["load"],
+                                              fx["p_mem"])
+                   for p in fx["quality"] if p["case"]["fabric"] == 2]
     elif args.trace:
         sim = SimParams(cycles=96_000, warmup=0)
         (name, tr), = figures.fig7_traces(("gemma-7b-oneshot",))
@@ -74,7 +97,7 @@ def main() -> int:
     dims = [simulator.pack_dims(topo, tt) for topo, _, tt, _ in built]
     floors = {k: max(d[k] for d in dims) for k in sweep.HARMONIZED_DIMS}
     pss = [simulator.pack(topo, rt, tt, p.phy, p.sim, floors=floors,
-                          device="cuda")
+                          phy_spec=p.phy_spec, device="cuda")
            for p, (topo, rt, tt, _) in zip(pts, built)]
 
     simulator.run_batch(pss, cycles=128)              # warm-up
@@ -100,8 +123,9 @@ def main() -> int:
         by_name[e.name] += e.time_range.elapsed_us()
     assert len({ps.shape_key() for ps in pss}) == 1, "one batch expected"
     rec = dict(
-        mode="mem" if args.mem else "trace" if args.trace else "open",
-        mem_on=pss[0].mem_on, mc_on=pss[0].mc_on,
+        mode="mem" if args.mem else "trace" if args.trace
+        else ("living" if args.living else "phy") if args.phy else "open",
+        **pss[0].flags(), mc_on=pss[0].mc_on,
         lanes=len(pss), B=pss[0].B, timed_cycles=args.cycles,
         host_ms_per_cycle=host_ms,
         traced_cycles=traced,

@@ -19,8 +19,9 @@ loudly:
    ``tests/test_golden_metrics.py`` through ``run_sweep_batched`` on the
    card, held against ``tests/goldens/*.json`` (integers exact, floats
    rel 1e-6);
-5. fig2 at paper size: substrate, interposer and wireless 4C4M, load 1.0,
-   10 000 cycles with 1 000 of warm-up, in one batched call, with the
+5. fig2 at paper width: substrate, interposer and wireless 4C4M, load 1.0,
+   4 000 cycles with 1 000 of warm-up (the paper's 10 000 cut for this
+   script's time limit), in one batched call, with the
    kernel launch counts set to 0 before and read after; held against
    ``tests/torch_fixtures/fig2_reference.json`` (written by the JAX
    package) under the same bounds;
@@ -83,10 +84,11 @@ loudly:
     the same forward timed with the CUDA-core SSD kernel forced in
     through its own entry point; then ``launch/serve.py``'s engine
     serving 8 requests on 4 slots (no kernel launch);
-12. fig8 at paper size: the grid of ``benchmarks/fig8_memory.py``
+12. fig8 at paper width: the grid of ``benchmarks/fig8_memory.py``
     (closed-loop memory on 4C4M's three fabrics at loads 0.05-1.0 with
-    windows 4 and 16, and canneal closed-loop; 32 points, 6 000 cycles,
-    1 000 of warm-up) in one ``run_sweep_batched`` call, held against
+    windows 4 and 16, and canneal closed-loop; 32 points, 3 000 cycles
+    with 1 000 of warm-up, fig8's 6 000 cut for this script's time limit)
+    in one ``run_sweep_batched`` call, held against
     ``tests/torch_fixtures/fig8_reference.json`` (every ``Metrics``
     field: integers exact, floats rel 1e-6), with fig8's own checks (the
     in-flight count never exceeds the window; AMAT grows with load);
@@ -100,13 +102,34 @@ loudly:
     (``drain_cycle``, ``phase_end`` and the air counters included); every
     trace completes and the cycle-vs-analytic link energy is within 2x.
     fig7's three synthetic ring traces drain only after 63 488-78 848
-    cycles and are left to ``benchmarks_torch/fig7_traces.py``.
+    cycles and are left to ``benchmarks_torch/fig7_traces.py``;
+15. fig9 at paper size, the lossy and living PHY: the quality grid of
+    ``benchmarks/fig9_lossy_channel.py`` (link budgets 13-26 dB x
+    adaptive/fixed:0/fixed:-1 x three fabrics, 4C4M at load 0.5, 6 000
+    cycles with 1 000 of warm-up: 54 points in two batches, the ARQ
+    program and the ideal one), its drift sweep (0/2/4/6 dB x online,
+    static, fixed:0, fixed:-1 at 19 dB: 16 points in four batches, one per
+    static flag set) and its one-shot all-reduce at 22 dB (8 000 cycles),
+    plus a small drop-heavy multicast trace and a short-birth living point
+    whose window boundaries are replayed after it drains; every point held
+    against ``tests/torch_fixtures/fig9_reference.json`` (every
+    ``Metrics`` field), fig9's hard checks (adaptive air efficiency >=
+    0.98x each fixed policy at every budget, adaptive aggregate goodput,
+    wireline bit-identical across policies, online >= static >= fixed:0
+    and online >= every fixed under drift, the trace complete with nothing
+    dropped), and the drifted PER tables and re-selected rates of every
+    window of the drift points.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
 cycle longer, the window one wider, a request's birth one cycle early,
 or the first trace phase closing one ejection early; and a rerun of the
 one-shot wireless point with multicast transmit energy counted per copy.
+Phase 15 plants four: ``max_retx`` one higher on the 13 dB fixed:0
+wireless point (an extra lane), and, in reruns of the small trace or the
+living point, broadcast ARQ anchored on the best member link
+(``simulator._group_link`` swapped), the drift walk's seed xored with
+another constant and the chunked driver's window replay skipped.
 Each prints wall seconds, points/s, lane-cycles/s and the slowest lane's
 ``drain_cycle`` with the card's name and power limit, and reads every
 kernel's launch count after its run (no kernel of this repository runs
@@ -1136,7 +1159,7 @@ def sim_rates(ms, wall: float, budget: int) -> dict:
 
 
 def phase_fig8(dev, kmods, smi) -> dict:
-    """fig8 at paper size against its JAX fixture, fig8's own checks, and
+    """fig8's grid against its JAX fixture, fig8's own checks, and
     two planted faults riding as extra lanes of the one batched call."""
     import torch
     from repro_torch.core import simulator
@@ -1340,6 +1363,158 @@ def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE) -> dict:
     return rec
 
 
+def _i32s(rec: dict, key: str, shape) -> "np.ndarray":
+    import base64
+    import zlib
+
+    import numpy as np
+    raw = zlib.decompress(base64.b64decode(rec[key]))
+    return np.frombuffer(raw, "<i4").reshape(shape)
+
+
+def phase_fig9(dev, kmods, smi, emit=None) -> dict:
+    """fig9 at paper size against its JAX fixture: the quality grid (54
+    points, two batches), the drift sweep (16 points, four batches) and
+    the one-shot all-reduce over the lossy channel, with fig9's hard
+    checks; the small broadcast-ARQ trace and the short-birth living point
+    whose window boundaries are replayed after its drain; the drifted
+    tables of every window of the drift points on the card.  Four planted
+    faults must be rejected: ``max_retx`` one higher (an extra lane of the
+    quality grid), broadcast ARQ anchored on the best member (a rerun of
+    the small trace), the drift walk's seed xored with another constant
+    and the window replay skipped (reruns of the living point).  ``emit``
+    gets fig9's CSV rows."""
+    import torch
+    from repro_torch.core import chunked, simulator, sweep
+    from repro_torch.core.constants import SimParams
+    from repro_torch.core.metrics import compute_metrics
+    from repro_torch.core.sweep import run_sweep_batched
+    from repro_torch.phy import living
+    from benchmarks_torch import figures
+
+    fx = figures.fixture("fig9_reference.json")
+    sim = SimParams(**fx["sim"])
+    load, p_mem = fx["load"], fx["p_mem"]
+    qcases = [p["case"] for p in fx["quality"]]
+    dcases = [p["case"] for p in fx["drift"]]
+    qpts = [figures.fig9_quality_point(c, sim, load, p_mem) for c in qcases]
+    dpts = [figures.fig9_drift_point(c, sim, load, p_mem,
+                                     fx["drift_budget_db"]) for c in dcases]
+    if figures.bcast_trace(fx["bcast"]["case"]["payload_bytes"]) \
+            .describe() != fx["bcast"]["describe"]:
+        raise AssertionError("fig9: the broadcast trace differs from the "
+                             "fixture's")
+    # fault 1: one more ARQ attempt on the lossiest point (13 dB, fixed:0)
+    hot = qcases.index(dict(budget_db=13.0, policy="fixed:0", fabric=2))
+    f_sim = SimParams(**fx["sim"])
+    faults = {id(f_sim): lambda ss: ss._replace(max_retx=ss.max_retx + 1)}
+
+    def single(kind):
+        ps = figures.fig9_packed(kind, fx[kind]["case"], dev)
+        return compute_metrics(ps, simulator.run(ps),
+                               fx[kind]["metrics"]["name"], 0.0)
+
+    zero(kmods)
+    walls = {}
+    t = time.perf_counter()
+    with planted_tables(simulator, faults):
+        qms = run_sweep_batched(qpts + [figures.fig9_quality_point(
+            qcases[hot], f_sim, load, p_mem)], device=dev)
+    torch.cuda.synchronize()
+    walls["quality"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dms = run_sweep_batched(dpts, device=dev)
+    torch.cuda.synchronize()
+    walls["drift"] = time.perf_counter() - t
+    got = {}
+    for kind in ("mc_trace", "bcast", "replay"):
+        t = time.perf_counter()
+        got[kind] = single(kind)
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t
+    launches = counts(kmods)
+    expect_counts("fig9", launches, {})
+    qms, fm = qms[:len(qpts)], qms[-1]
+    for p, m in zip(fx["quality"], qms):
+        check_all(f"fig9 {m.name}", m, p["metrics"])
+    for p, m in zip(fx["drift"], dms):
+        check_all(f"fig9 {m.name}", m, p["metrics"])
+    for kind, m in got.items():
+        check_all(f"fig9 {kind}", m, fx[kind]["metrics"])
+    checks = figures.fig9_checks(list(zip(qcases, qms)),
+                                 list(zip(dcases, dms)), got["mc_trace"],
+                                 emit)
+    if not all(checks.values()):
+        raise AssertionError(f"fig9 checks: {checks}")
+    # the drifted tables of every window the drift points visit
+    tables = 0
+    for amp, rec in fx["windows"].items():
+        n, W = rec["n_wi"], rec["windows"]
+        pt = figures.fig9_drift_point(dict(amp_db=float(amp), arm="online"),
+                                      sim, load, p_mem, fx["drift_budget_db"])
+        topo, rt, tt, _ = sweep._build_point(pt)
+        ps = simulator.pack(topo, rt, tt, pt.phy, pt.sim,
+                            phy_spec=pt.phy_spec, device=dev)
+        ss = simulator.SimStatic(*(x[None] for x in ps.ss))
+        R = int(ss.wl_serv_r.shape[1])
+        want_q = _i32s(rec, "perq_r", (W, R, n, n))
+        want_r = _i32s(rec, "rate", (W, n, n))
+        for win in range(W):
+            perq_r, gp_q = living.entry_tables(ss, win)
+            rate = living.first_argmax(gp_q, 1)
+            if not ((perq_r[0, :, :n, :n].cpu().numpy() == want_q[win])
+                    .all() and (rate[0, :n, :n].cpu().numpy()
+                                == want_r[win]).all()):
+                raise AssertionError(f"fig9 drifted tables differ: {amp} dB "
+                                     f"window {win}")
+            tables += 1
+    want_hot = fx["quality"][hot]["metrics"]
+    why = [rejected("fig9 max_retx +1",
+                    lambda: check_all("fault", fm, want_hot))]
+
+    def best_member(rows, member):
+        return torch.where(member, rows[:, :, None, :],
+                           torch.iinfo(rows.dtype).max).amin(-1)
+
+    t = time.perf_counter()
+    with swapped(simulator, "_group_link", best_member):
+        fb = single("bcast")
+    why.append(rejected("fig9 broadcast ARQ on the best member",
+                        lambda: check_all("fault", fb,
+                                          fx["bcast"]["metrics"])))
+    with swapped(living, "DRIFT_SEED", living.DRIFT_SEED ^ 0x5A5A5A5A):
+        fd = single("replay")
+    why.append(rejected("fig9 drift seed ^ 0x5A5A5A5A",
+                        lambda: check_all("fault", fd,
+                                          fx["replay"]["metrics"])))
+    with swapped(chunked, "replay_windows", lambda fn, st, *a: st):
+        fr = single("replay")
+    why.append(rejected("fig9 window replay skipped",
+                        lambda: check_all("fault", fr,
+                                          fx["replay"]["metrics"])))
+    torch.cuda.synchronize()
+    walls["fault_reruns"] = time.perf_counter() - t
+    main_wall = walls["quality"] + walls["drift"] + walls["mc_trace"]
+    rec = dict(
+        points=len(qms) + len(dms) + 1,
+        lanes=len(qms) + 1 + len(dms) + 1,     # + the fault lane, the trace
+        batches=dict(quality=len({c["fabric"] == 2 for c in qcases}),
+                     drift=len({(c["amp_db"] > 0, c["arm"] == "online")
+                                for c in dcases})),
+        cycles=sim.cycles, wall_s=walls, figure_wall_s=main_wall,
+        points_per_s=(len(qms) + len(dms) + 1) / main_wall,
+        lane_cycles_per_s=(len(qms) + 1 + len(dms)) * sim.cycles
+        / (walls["quality"] + walls["drift"]),
+        mc_trace_drain_cycle=got["mc_trace"].drain_cycle,
+        bcast_drain_cycle=got["bcast"].drain_cycle,
+        replay=dict(drain_cycle=got["replay"].drain_cycle,
+                    wl_resel=got["replay"].wl_resel),
+        drift_tables_checked=tables, checks=checks, faults_rejected=why,
+        kernel_launches_on_path=launches, power=smi)
+    say("fig9", json.dumps(rec))
+    return rec
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1462,6 +1637,8 @@ def main() -> int:
     phase_fig8(dev, kmods, smi)
     phase_memcl(dev, kmods, smi)
     phase_fig7(dev, kmods, smi)
+    # the lossy and living PHY: fig9 at paper size
+    phase_fig9(dev, kmods, smi)
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc,

@@ -8,9 +8,12 @@ device, and back.  This is the simulator's counterpart of loading
 weights: a test can start both engines from one state, a mid-run one
 included.  Every leaf carries, the closed-loop memory leaves (``rdy``,
 ``dead``, ``outst``, ``bank_*``, ``amat_*``, ``mem_*``) and the trace
-leaves (``cur_phase``, ``phase_*``, ``mc_id``) too; a state made with
-``mem_on`` must run in the port with ``mem_on`` (``simulator.run_from``,
-``run_cycles``).
+leaves (``cur_phase``, ``phase_*``, ``mc_id``) and the lossy-PHY and
+living-channel leaves too; a state made with ``mem_on``, ``phy_on`` or a
+living flag must run in the port with the same flags
+(``simulator.run_from``, ``run_cycles``).  A carried ``phy_seed`` keeps
+the reference's uint32 (``pack`` holds it in int64); the step reads
+either.
 
 For the model side, ``params_from_jax`` turns the reference's parameter
 tree (leaves as numpy arrays) into the port's, and ``numpy_params`` makes

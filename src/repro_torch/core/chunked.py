@@ -16,7 +16,12 @@ Per-lane semantics are the reference's, where ``lax.map`` runs each lane's
   reference's per-cycle ``lax.cond``), so a budget that ends mid-chunk
   freezes exactly there;
 - ``_finalize`` adds the closed-form awake/sleep remainder for the cycles
-  in ``[stop, cycles)`` and records ``cycles_run``/``drain_cycle``.
+  in ``[stop, cycles)`` and records ``cycles_run``/``drain_cycle``;
+- a living-channel lane that drained early replays the window boundaries
+  in ``[stop, cycles)`` that it skipped (``replay_windows``), as the
+  reference does after its loop.  A frozen lane also misses the
+  boundaries other lanes still step through, so the replay masks lanes by
+  their own range rather than running once after the loop for all.
 
 The loop ends when no lane steps any more.  Every lane's final state is
 bitwise equal to a solo run of its point.
@@ -94,15 +99,40 @@ def _select(live: torch.Tensor, new, old):
     return type(old)(*out)
 
 
+def replay_windows(window_fn: Callable, st, stop: Sequence[int],
+                   budgets: Sequence[int]):
+    """Apply ``window_fn(st, b)`` at every window boundary ``b`` (a
+    multiple of ``CHUNK_CYCLES``) in ``[ceil(stop / W) * W, budget)`` of
+    each lane, masking the lanes whose range does not hold ``b``.
+
+    The step applies the living-channel update at every boundary it runs
+    through; a lane that stopped at ``stop`` (a drain, chunk-aligned)
+    never ran the later ones, while a monolithic run of its budget does.
+    The update writes only the dynamic link tables and ``wl_resel``, so
+    replaying it leaves the drained lane bitwise equal to that run.
+    """
+    W = CHUNK_CYCLES
+    first = [-(-int(s) // W) * W for s in stop]
+    dev = st.wl_resel.device
+    for b in range(min(first), max(budgets), W):
+        on = [f <= b < c for f, c in zip(first, budgets)]
+        if any(on):
+            st = _select(torch.tensor(on, device=dev), window_fn(st, b), st)
+    return st
+
+
 def run_chunked(step: Callable, ss, st, budgets: Sequence[int],
-                mem_on: bool = False):
+                mem_on: bool = False, window_fn: Callable | None = None):
     """Drive ``step(st, t) -> st`` over lane-leading ``st`` to each lane's
     budget, with early drain exit.
 
     ``budgets`` are the lanes' cycle budgets on the host (equal to
     ``ss.cycles``): where every lane is stepping and the whole chunk lies
     within every budget, no per-cycle mask is needed.  ``mem_on`` as in
-    ``drain_done``.
+    ``drain_done``.  ``window_fn(st, t) -> st`` is the living channel's
+    boundary update, which the step applies at every multiple of
+    ``CHUNK_CYCLES``; with it the boundaries a drained lane skipped are
+    replayed (``replay_windows``).
     """
     G = len(budgets)
     cycles = ss.cycles
@@ -123,4 +153,6 @@ def run_chunked(step: Callable, ss, st, budgets: Sequence[int],
             new = step(st, t)
             st = new if unmasked else _select(cont & (t < cycles), new, st)
         t0 += CHUNK_CYCLES
+    if window_fn is not None:
+        st = replay_windows(window_fn, st, stop.tolist(), budgets)
     return _finalize(ss, st, stop)

@@ -12,9 +12,10 @@
 The energy terms are reduced on the device in float32 for the whole lane
 batch at once.  The sum over links runs in another order than XLA's, so
 energies agree with the reference to float32 rounding (the golden harness
-holds them to rel 1e-6); every integer counter is exact.  The lossy-PHY
-extensions of ``Metrics`` stay at their defaults: ``pack`` does not accept
-those points yet.
+holds them to rel 1e-6); every integer counter is exact.  Under the
+lossy PHY the wireless link energy is per (src, dst) pair, from the exact
+attempt counters and the pair's rate (or, on a living channel, the
+per-rate-entry split), in float64 on the host as in the reference.
 """
 from __future__ import annotations
 
@@ -193,6 +194,11 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
             "mem_reads", "mem_writes", "mem_row_hits", "mem_q_sum",
             "mem_svc_sum", "mem_flits", "amat_sum", "amat_pkts",
             "outst_peak")})
+    if any(ps.phy_link is not None for ps in pss):
+        h.update({k: getattr(st, k).cpu().numpy() for k in (
+            "wl_pair_flits", "wl_fail_flits", "wl_rate_flits",
+            "wl_rate_fail", "wl_pkts", "wl_nacks", "pkts_dropped",
+            "wl_drop_flits", "mem_drop_reads", "wl_resel")})
 
     out = []
     for g, ps in enumerate(pss):
@@ -210,6 +216,51 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
                else float("nan"))
         thr = flits / window / ps.n_cores
         n_ph = int(ps.ss.n_phases)
+        phykw = {}
+        pl = ps.phy_link
+        if pl is not None:
+            # wireless link energy is per pair under the lossy PHY (the rx
+            # buffers' b_epb is zeroed at pack): every transmitted flit,
+            # failing attempts included, pays its pair's energy per bit
+            pf = h["wl_pair_flits"][g].astype(np.float64)
+            ff = h["wl_fail_flits"][g].astype(np.float64)
+            if ps.drift_on or ps.reselect:
+                # a pair's rate entry moves mid-run: energy, air occupancy
+                # and the rate histogram come from the per-entry split
+                att_r = h["wl_rate_flits"][g].astype(np.float64)
+                fail_r = h["wl_rate_fail"][g].astype(np.float64)
+                e_pair = float((att_r * pl.epb_r).sum()) * bits
+                e_fail = float((fail_r * pl.epb_r).sum()) * bits
+                air = float((att_r * pl.serv_r).sum())
+                hist = {entry.name: int(att_r[r] - fail_r[r])
+                        for r, entry in enumerate(pl.table)
+                        if att_r[r] > fail_r[r]}
+            else:
+                e_pair = float((pf * pl.epb).sum()) * bits
+                e_fail = float((ff * pl.epb).sum()) * bits
+                air = float((pf * pl.serv).sum())
+                hist = {}
+                for r, entry in enumerate(pl.table):
+                    dfl = int(((pf - ff) * (pl.rate_idx == r)).sum())
+                    if dfl:
+                        hist[entry.name] = dfl
+            energy += e_pair
+            wl_pkts = int(h["wl_pkts"][g])
+            phykw = dict(
+                wl_goodput_gbps=float(h["wl_rx_flits"][g]) * bits
+                * phy.clock_ghz / window,
+                wl_air_cycles=air,
+                wl_air_eff=float((pf - ff).sum()) / max(air, 1.0),
+                wl_retx_rate=int(h["wl_nacks"][g]) / max(wl_pkts, 1),
+                wl_pkts=wl_pkts,
+                wl_nacks=int(h["wl_nacks"][g]),
+                wl_dropped=int(h["pkts_dropped"][g]),
+                wl_dropped_payload=int(h["wl_drop_flits"][g]),
+                mem_dropped_reads=int(h["mem_drop_reads"][g]),
+                wl_rate_hist=hist,
+                wl_resel=int(h["wl_resel"][g]),
+                retx_energy_share=e_fail / max(e_pair, 1e-12),
+            )
         memkw = {}
         if ps.mem_on:
             Ym = ps.topo.n_mem
@@ -254,7 +305,9 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
             flits_delivered=flits,
             flits_injected=int(h["flits_inj"][g]),
             energy_breakdown=dict(links=float(el[g]), switch=float(es[g]),
-                                  ctrl=float(ec[g]), rx=float(er[g])),
+                                  ctrl=float(ec[g]), rx=float(er[g]),
+                                  **({"wl": e_pair} if pl is not None
+                                     else {})),
             phases_done=int(h["cur_phase"][g]),
             n_phases=n_ph,
             phase_end=[int(x) for x in h["phase_end"][g][:n_ph]],
@@ -263,6 +316,7 @@ def compute_metrics_batch(pss: Sequence[PackedSim], st: SimState,
             wl_rx_flits=int(h["wl_rx_flits"][g]),
             cycles_run=cyc,
             drain_cycle=int(h["drain_cycle"][g]),
+            **phykw,
             **memkw,
         ))
     return out

@@ -21,10 +21,8 @@ live in a short arrival pipe (shift register).
 
 What this port covers
 ---------------------
-The reference step with the lossy PHY and the living channel off
-(``phy_on = drift_on = reselect = False``): all three wireless media
-(crossbar, matching, single), both MAC modes (control packet, token),
-sleepy receivers, and
+The whole reference step: all three wireless media (crossbar, matching,
+single), both MAC modes (control packet, token), sleepy receivers, and
 
 - *trace tables*: phase barriers (a packet injects once its phase is
   open; a phase closes at ``phase_need`` ejections) and multicast groups
@@ -37,13 +35,28 @@ sleepy receivers, and
   (service from ``max(t + 1, bank_busy)``, row hit or miss), reply births
   in ``rdy`` by a one-assignment minimum, the ``max_outstanding`` gate on
   ``outst`` credited back at the requester, the ``amat_*``/``mem_*``
-  counters.
+  counters;
+- *the lossy PHY* under the static ``phy_on`` (a ``phy_spec`` on a fabric
+  with wireless interfaces): per-(src WI, dst WI) rates and PER
+  thresholds, packet-deep ARQ senders paced per pair (``pair_busy``), the
+  CRC outcome of every attempt from the counter-based hash of
+  ``phy.retx``, NACK and rewind, drops after ``max_retx`` attempts (the
+  sender slot and the receiver VC freed, the phase barrier credited, and
+  under ``mem_on`` the requester's window credited and a dropped
+  request's reply slot tombstoned in ``dead``), broadcast ARQ for
+  multicast groups anchored on the worst member link, and the per-pair
+  air and energy counters;
+- *the living channel* under the static ``drift_on``/``reselect`` (they
+  imply ``phy_on``): the per-pair tables live in the carry and are
+  refreshed at every ``CHUNK_CYCLES`` window boundary by
+  ``phy.living.make_window_fn`` (the SNR drift walk and/or in-scan rate
+  re-selection); the chunked driver replays the boundaries a lane skips
+  after an early drain.
 
-The multicast terms sit under a second static flag of the port's own,
+The multicast terms sit under a further static flag of the port's own,
 ``mc_on``: without multicast groups every one of them is inert, and
 ``pack`` leaves them out, so an open-loop point runs the open-loop
-program alone.  ``pack`` raises ``NotImplementedError`` for a
-``phy_spec`` (ROADMAP A7).
+program alone.
 
 Lanes
 -----
@@ -76,12 +89,15 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import chunked
+from repro_torch.core.chunked import CHUNK_CYCLES
 from repro_torch.core.constants import (WMAX, LinkClass, MacMode, PhyParams,
                                         SimParams)
 from repro_torch.core.routing import RoutingTables
 from repro_torch.core.topology import Topology
 from repro_torch.core.traffic import NO_PKT, TrafficTable
 from repro_torch.memory.model import MEM_CH, DEFAULT_DRAM
+from repro_torch.phy.living import make_window_fn
+from repro_torch.phy.retx import crc_fail
 
 V = 8            # virtual channels per port (paper §IV)
 DEPTH = 16       # buffer depth in flits (paper §IV)
@@ -169,24 +185,28 @@ class SimStatic(NamedTuple):
     t_row_hit: torch.Tensor    # scalar i32
     t_row_miss: torch.Tensor   # scalar i32
     max_outst: torch.Tensor    # scalar i32
-    # lossy PHY tables (inert: the ARQ path is not ported)
-    wl_serv: torch.Tensor      # [WMAX, WMAX]
-    wl_perq: torch.Tensor      # [WMAX, WMAX]
+    # lossy PHY tables (inert unless ``phy_on``; ``rx_hold`` is also set
+    # alone for multicast tables: store-and-forward receivers).  Broadcast
+    # ARQ reads the same per-pair tables: group service and PER threshold
+    # are the maximum over the member links
+    wl_serv: torch.Tensor      # [WMAX, WMAX] flit cycles per (src, dst) WI
+    wl_perq: torch.Tensor      # [WMAX, WMAX] 16-bit PER threshold per link
     rx_hold: torch.Tensor      # bool: rx slots hold whole packets
-    max_retx: torch.Tensor     # scalar i32
-    phy_seed: torch.Tensor     # scalar u32
-    ctrl_flits: torch.Tensor   # scalar i32
-    # living-channel tables (placeholder shapes)
-    wl_rate0: torch.Tensor
-    wl_snr: torch.Tensor
-    wl_serv_r: torch.Tensor
-    wl_perq_r: torch.Tensor
-    wl_gp_q: torch.Tensor
-    wl_gain_r: torch.Tensor
-    wl_gbps_r: torch.Tensor
-    wl_pkt_bits: torch.Tensor
-    wl_drift_amp: torch.Tensor
-    wl_drift_period: torch.Tensor
+    max_retx: torch.Tensor     # scalar i32: ARQ attempt bound per packet
+    phy_seed: torch.Tensor     # scalar int64 holding the u32 CRC hash seed
+    ctrl_flits: torch.Tensor   # scalar i32: control-packet length in flits
+    # living-channel tables (placeholder shapes unless drift_on/reselect;
+    # the carry's dynamic tables then replace wl_serv/wl_perq)
+    wl_rate0: torch.Tensor     # [WMAX, WMAX] i32 host-selected rate entry
+    wl_snr: torch.Tensor       # [WMAX, WMAX] f32 undrifted SNR map (dB)
+    wl_serv_r: torch.Tensor    # [R] i32 flit cycles per rate entry
+    wl_perq_r: torch.Tensor    # [R, WMAX, WMAX] i32 PER threshold per entry
+    wl_gp_q: torch.Tensor      # [R, WMAX, WMAX] i32 quantized goodput
+    wl_gain_r: torch.Tensor    # [R] f32 processing gain per entry
+    wl_gbps_r: torch.Tensor    # [R] f32 line rate per entry
+    wl_pkt_bits: torch.Tensor  # f32 packet bits (PER recompute under drift)
+    wl_drift_amp: torch.Tensor  # f32 aging amplitude in dB (0 = static)
+    wl_drift_period: torch.Tensor  # i32 windows between drift knots
 
 
 class SimState(NamedTuple):
@@ -212,7 +232,7 @@ class SimState(NamedTuple):
     pipe: torch.Tensor         # [B, V, DMAX] int8
     busy_until: torch.Tensor   # [B]
     wl_busy_until: torch.Tensor  # scalar: shared-channel mode
-    pair_busy: torch.Tensor    # placeholder (lossy PHY)
+    pair_busy: torch.Tensor    # [WMAX, WMAX] per-(src, dst) WI busy-until
     # injection
     q_head: torch.Tensor       # [N]
     inj_vc: torch.Tensor       # [N] int8
@@ -222,9 +242,10 @@ class SimState(NamedTuple):
     phase_del: torch.Tensor    # scalar
     phase_end: torch.Tensor    # [P]
     phase_flits: torch.Tensor  # [P]
-    # closed-loop memory (placeholders)
-    rdy: torch.Tensor
-    dead: torch.Tensor
+    # closed-loop memory (placeholder shapes unless mem_on)
+    rdy: torch.Tensor          # [N, K] reply birth cycle (NO_PKT = ungated)
+    dead: torch.Tensor         # [N, K] bool: tombstoned reply slot (its
+    #                            request was ARQ-dropped; injection skips it)
     outst: torch.Tensor        # [N]
     bank_busy: torch.Tensor
     bank_row: torch.Tensor
@@ -250,37 +271,42 @@ class SimState(NamedTuple):
     wl_rx_flits: torch.Tensor
     awake_cycles: torch.Tensor
     sleep_cycles: torch.Tensor
-    # lossy-PHY stats (placeholders / zero)
-    wl_pair_flits: torch.Tensor
-    wl_fail_flits: torch.Tensor
-    wl_pkts: torch.Tensor
-    wl_nacks: torch.Tensor
-    pkts_dropped: torch.Tensor
-    wl_drop_flits: torch.Tensor
-    mem_drop_reads: torch.Tensor
-    # living-channel dynamics (placeholders)
-    wl_serv_d: torch.Tensor
-    wl_perq_d: torch.Tensor
-    wl_rate_d: torch.Tensor
-    wl_resel: torch.Tensor
-    wl_rate_flits: torch.Tensor
-    wl_rate_fail: torch.Tensor
+    # lossy-PHY stats (zero unless phy_on)
+    wl_pair_flits: torch.Tensor  # [WMAX, WMAX] flit attempts per link
+    wl_fail_flits: torch.Tensor  # [WMAX, WMAX] flits of CRC-failing attempts
+    wl_pkts: torch.Tensor      # packets that crossed the air (CRC pass)
+    wl_nacks: torch.Tensor     # failed attempts (NACK events)
+    pkts_dropped: torch.Tensor  # packets dropped at max_retx
+    wl_drop_flits: torch.Tensor  # payload flits lost to drops (x members)
+    mem_drop_reads: torch.Tensor  # read round trips lost to drops
+    # living-channel dynamics (placeholder shapes unless living): the
+    # current per-pair link tables, refreshed per scan window
+    wl_serv_d: torch.Tensor    # [WMAX, WMAX] i32 current flit cycles
+    wl_perq_d: torch.Tensor    # [WMAX, WMAX] i32 current PER threshold
+    wl_rate_d: torch.Tensor    # [WMAX, WMAX] i32 current rate entry
+    wl_resel: torch.Tensor     # scalar: in-scan rate re-selections
+    wl_rate_flits: torch.Tensor  # [R] flit attempts per rate entry
+    wl_rate_fail: torch.Tensor   # [R] failing-attempt flits per rate entry
     # driver metadata
     cycles_run: torch.Tensor   # scalar i32
     drain_cycle: torch.Tensor  # scalar i32
 
 
 def init_state(B: int, N: int, P: int = 1, K: int = 1, Y: int = 1,
-               BK: int = 1, mem_on: bool = False, *,
+               BK: int = 1, mem_on: bool = False, phy_on: bool = False,
+               living: bool = False, R: int = 1, *,
                lanes: int | None = None, device=None) -> SimState:
-    """Zero state, leaf for leaf the reference's ``init_state`` with the
-    lossy PHY and the living channel off.
+    """Zero state, leaf for leaf the reference's ``init_state``.
 
     The closed-loop memory leaves (``rdy``, ``dead``, ``bank_busy``,
-    ``bank_row``) take their real shapes only with ``mem_on``, and the
-    PHY and living-channel leaves keep the reference's placeholder
-    shapes.  ``lanes`` prepends a lane dimension of that size to every
-    leaf.
+    ``bank_row``) take their real shapes only with ``mem_on``, the
+    per-pair PHY leaves (``pair_busy``, ``wl_pair_flits``,
+    ``wl_fail_flits``) only with ``phy_on``, and the living-channel
+    tables ([WMAX, WMAX]) and per-entry counters ([R]) only with
+    ``living``; otherwise they keep the reference's placeholder shapes.
+    The living tables start zeroed: the window update fires at ``t == 0``
+    before any read.  ``lanes`` prepends a lane dimension of that size to
+    every leaf.
     """
     dev = _device.resolve(device)
     pre = () if lanes is None else (lanes,)
@@ -293,8 +319,9 @@ def init_state(B: int, N: int, P: int = 1, K: int = 1, Y: int = 1,
 
     NK = (N, K) if mem_on else (1, 1)
     YCB = (Y, MEM_CH, BK) if mem_on else (1, 1, 1)
-    WW = WWL = (1, 1)
-    RL = (1,)
+    WW = (WMAX, WMAX) if phy_on else (1, 1)
+    WWL = (WMAX, WMAX) if living else (1, 1)
+    RL = (R,) if living else (1,)
     BV = (B, V)
     return SimState(
         pkt_src=full(BV, -1, i32), pkt_idx=z(BV), pkt_dst=z(BV),
@@ -474,15 +501,17 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
     cycle (a Python int, shared by all lanes).  ``mem_on`` (static, as in
     the reference) adds the closed-loop memory path: bank model, reply
     gating, the outstanding-transaction cap, per-slot packet lengths.
-    ``mc_on`` (static, the port's own) keeps the multicast terms; with it
-    off they are left out, which is exact only for tables without
-    multicast groups (there every one of them is inert): the drivers set
-    it from the tables.  The lossy-PHY and living-channel paths are not
-    ported: their flags raise.
+    ``phy_on`` (static) adds the lossy-channel ARQ path: per-link rates
+    and pacing, CRC retransmission, drops.  ``drift_on``/``reselect``
+    (static, imply ``phy_on``) add the living channel: the per-pair
+    tables are read from the carry and refreshed at window boundaries by
+    ``phy.living.make_window_fn``.  ``mc_on`` (static, the port's own)
+    keeps the multicast terms; with it off they are left out, which is
+    exact only for tables without multicast groups (there every one of
+    them is inert): the drivers set it from the tables.
     """
-    if phy_on or drift_on or reselect:
-        raise NotImplementedError(
-            "lossy PHY / living-channel steps: ROADMAP A7")
+    living = drift_on or reselect
+    assert not living or phy_on, "living channel requires the ARQ path"
     NC = B * V
     NCp1 = NC + 1
     assert NC * (NC + 1) < 2**31, \
@@ -511,6 +540,11 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             return (gm >= 0) & take2(ss.mc_member, gm.clamp(0, M - 1),
                                      warr[:, None, None])
 
+        if living and t % CHUNK_CYCLES == 0:
+            # living channel: refresh the per-pair link tables at every
+            # scan-window boundary (the chunked driver replays the ones a
+            # drained lane skips)
+            st = make_window_fn(ss, drift_on, reselect)(st, t)
         post = (ss.warmup <= t).to(i32)                          # [G]
         rot = t % NC
         prio = ((flat2d - rot) % NC) * NCp1 + flat2d             # [B, V]
@@ -695,6 +729,31 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         link_free |= out_is_wl & ~lane(ss.wl_rx_busy, 3)
         # store-and-forward receivers: rx slots forward only whole packets
         hold_ok = ~d.hold_bv | whole
+        if phy_on:
+            # lossy PHY: the sender holds the whole packet (ARQ needs it
+            # for retransmission), the (src, dst) WI pair paces at the
+            # link's rate, and the attempt's CRC outcome is a hash known
+            # sender-side; living points read the carry's tables
+            serv_tab = st.wl_serv_d if living else ss.wl_serv    # [G,W,W]
+            perq_tab = st.wl_perq_d if living else ss.wl_perq
+            wd_bv = out_wo.clamp(0, WMAX - 1)                     # [G,B,V]
+            pair = d.wi_c[..., None] * WMAX + wd_bv               # flat pair
+            serv_wl_bv = take(serv_tab.reshape(G, -1), pair)
+            perq_bv = take(perq_tab.reshape(G, -1), pair)
+            if mc_on:
+                # broadcast ARQ: a multicast attempt is paced and
+                # CRC-checked against its worst member link (the hash draw
+                # is link-independent, so "any member fails" is "the
+                # worst member fails")
+                serv_mc = _group_link(take(serv_tab, d.wi_c), member)
+                perq_mc = _group_link(take(perq_tab, d.wi_c), member)
+                serv_wl_bv = torch.where(is_mc, serv_mc, serv_wl_bv)
+                perq_bv = torch.where(is_mc, perq_mc, perq_bv)
+            pb_ok = take(st.pair_busy.reshape(G, -1), pair) <= t
+            wl_ok &= ~out_is_wl | (whole & pb_ok)
+            # the packet uid does not depend on padding (pkt_idx < 2^16)
+            fail_bv = crc_fail(lane(ss.phy_seed, 3), psrc_c * 65536 + pidx_c,
+                               attempt, perq_bv)
         elig = active & (occ > 0) & wl_ok & hold_ok \
             & (out_is_ej | ((out_vc >= 0) & (space > 0) & link_free))
         code2 = torch.where(elig, prio, BIGC)
@@ -750,7 +809,34 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         is_wl_fwd = fwd & out_is_wl
 
         sent = sent + fwd.to(i32)
-        tail = fwd & (sent >= plen)
+        phy = {}
+        if phy_on:
+            # CRC check on the tail of every air attempt: a NACK rewinds
+            # the sender (the whole packet is still buffered), the
+            # bounded-ARQ loser is dropped (its sender slot and claimed
+            # receiver VC are freed below; nothing was delivered)
+            first_wl = is_wl_fwd & (sent == 1)       # pre-rewind header
+            raw_tail = fwd & (sent >= plen)
+            fail_tail = raw_tail & out_is_wl & fail_bv
+            retx_m = fail_tail & (attempt + 1 < lane(ss.max_retx, 3))
+            drop = fail_tail & ~retx_m
+            tail = raw_tail & ~fail_tail
+            sent = torch.where(retx_m, sent - plen, sent)
+            attempt = torch.where(retx_m, attempt + 1, attempt)
+            # a drop's ejections never happen: count the lost payload
+            # (once per member copy for multicast, as wl_rx_flits)
+            member_cnt = torch.where(is_mc, _sum_i32(member, -1), 1) \
+                if mc_on else 1
+            phy.update(
+                wl_nacks=st.wl_nacks + post * _sum_i32(fail_tail, (1, 2)),
+                wl_pkts=st.wl_pkts + post * _sum_i32(tail & out_is_wl,
+                                                     (1, 2)),
+                pkts_dropped=st.pkts_dropped + post * _sum_i32(drop, (1, 2)),
+                wl_drop_flits=st.wl_drop_flits + post * _sum_i32(
+                    torch.where(drop, plen * member_cnt, 0), (1, 2)))
+        else:
+            first_wl = is_wl_fwd & (sent == 1)   # header => control packet
+            tail = fwd & (sent >= plen)
         ej = fwd & out_is_ej
 
         # ejection stats
@@ -769,6 +855,11 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         cur = st.cur_phase
         phase_del = st.phase_del + _sum_i32(
             tail_ej & (phv == lane(cur, 3)), (1, 2))
+        if phy_on:
+            # an ARQ drop's ejections (one per member copy) never happen:
+            # credit them to the open phase so a lossy trace drains
+            phase_del = phase_del + _sum_i32(torch.where(
+                drop & (phv == lane(cur, 3)), member_cnt, 0), (1, 2))
         at_cur = d.parr == cur[:, None]                             # [G,P]
         phase_flits = st.phase_flits + torch.where(at_cur, n_ej[:, None], 0)
         in_trace = (ss.n_phases > 0) & (cur < ss.n_phases)
@@ -789,12 +880,18 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         # non-eject: deliver downstream via the src_of inverse map — each
         # target (buffer, vc) gathers from the unique upstream slot feeding
         # it (identity-checked against out_buf/out_vc to survive slot reuse)
-        first_wl = is_wl_fwd & (sent == 1)   # header => control packet
-        ctrl = lane(ss.ctrl_cycles, 3)
-        lat_t = torch.where(out_is_wl, lane(ss.lat_wl, 3), take(ss.b_lat, ob_c)) \
+        if phy_on:
+            # per-link rate: serialization and control-packet time follow
+            # the (src, dst) WI pair's rate
+            ctrl = (lane(ss.ctrl_flits, 3) * serv_wl_bv).clamp(min=1)
+            lat_wl = lane(ss.lat_wl - ss.serv_wl, 3) + serv_wl_bv
+        else:
+            ctrl = lane(ss.ctrl_cycles, 3)
+            lat_wl = lane(ss.lat_wl, 3)
+            serv_wl_bv = lane(ss.serv_wl, 3)
+        lat_t = torch.where(out_is_wl, lat_wl, take(ss.b_lat, ob_c)) \
             + torch.where(first_wl & ~lane(ss.wl_rx_busy, 3), ctrl, 0)
-        serv_t = torch.where(out_is_wl, lane(ss.serv_wl, 3),
-                             take(ss.b_serv, ob_c)) \
+        serv_t = torch.where(out_is_wl, serv_wl_bv, take(ss.b_serv, ob_c)) \
             + torch.where(first_wl, ctrl, 0)
 
         sv = src_of.clamp(0, NC - 1).long()
@@ -809,13 +906,21 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
                      & (mc_id >= 0)
                      & (take(mc_id.reshape(G, -1), sv) == mc_id)) \
                 | (ident & ~mc_sv)
-        incoming = ident & take(fwd.reshape(G, -1), sv)           # [G,B,V]
+        incoming_any = ident & take(fwd.reshape(G, -1), sv)       # [G,B,V]
+        if phy_on:
+            # failing attempts occupy the channel and the receiver but
+            # deliver nothing; a dropped packet's receiver VC is freed
+            incoming = ident & take(
+                (fwd & ~(out_is_wl & fail_bv)).reshape(G, -1), sv)
+            rx_dropped = ident & take(drop.reshape(G, -1), sv)
+        else:
+            incoming = incoming_any
         d_in = (take(lat_t.reshape(G, -1), sv) - 1).clamp(0, DMAX - 1)
         pipe = pipe + (incoming[..., None] & (
             d.d_ar == d_in[..., None])).to(pipe.dtype)
         # crossbar: wireless winners do not serialize the receiver
-        ser_in = incoming & (~take(out_is_wl.reshape(G, -1), sv)
-                             | lane(ss.wl_rx_busy, 3))
+        ser_in = incoming_any & (~take(out_is_wl.reshape(G, -1), sv)
+                                 | lane(ss.wl_rx_busy, 3))
         serv_in = take(serv_t.reshape(G, -1), sv)
         busy_until = torch.where(
             ser_in.any(-1),
@@ -832,14 +937,24 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         wl_tx_flits = st.wl_tx_flits + post * _sum_i32(is_wl_fwd, (1, 2))
         wl_rx_flits = st.wl_rx_flits + post * _sum_i32(
             incoming & ss.b_is_rx[..., None], (1, 2))
+        if phy_on:
+            phy.update(_air_block(
+                ss, st, d, t, post, win2_wl, fwd, out_is_wl, wd_bv, fail_bv,
+                drop, serv_t, pkt_src, pkt_idx, mem, mem_on, living,
+                NCp1, BIGC))
         # the feeding packet's tail has been sent: the link is quiet again
         src_of = torch.where(ident & take(tail.reshape(G, -1), sv), -1, src_of)
 
-        # free VCs whose tail left
-        pkt_src = torch.where(tail, -1, pkt_src)
-        out_vc = torch.where(tail, -1, out_vc)
-        out_is_wl = torch.where(tail, False, out_is_wl)
-        out_is_ej = torch.where(tail, False, out_is_ej)
+        # free VCs whose tail left (phy: also ARQ-dropped senders and the
+        # receiver VCs their claims held)
+        freed = tail
+        if phy_on:
+            freed = tail | drop | rx_dropped
+            src_of = torch.where(rx_dropped, -1, src_of)
+        pkt_src = torch.where(freed, -1, pkt_src)
+        out_vc = torch.where(freed, -1, out_vc)
+        out_is_wl = torch.where(freed, False, out_is_wl)
+        out_is_ej = torch.where(freed, False, out_is_ej)
 
         # ---- 3. injection -------------------------------------------------
         n_ar = d.n_ar
@@ -907,6 +1022,12 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
         inj_vc = torch.where(can_new, ivc.to(i8), st.inj_vc)
         inj_pushed = torch.where(can_new, 0, st.inj_pushed)
         q_head = st.q_head + can_new.to(i32)
+        if mem_on and phy_on:
+            # tombstoned reply slots (request ARQ-dropped) never birth:
+            # step past them so the in-order channel keeps flowing
+            skip = (st.inj_vc < 0) & (st.q_head < K) \
+                & take(mem["dead"].reshape(G, -1), head)
+            q_head = q_head + skip.to(i32)
         if mem_on:
             outst = outst + (can_new & is_tx).to(i32)
             mem["outst"] = outst
@@ -956,10 +1077,90 @@ def make_step(B: int, mem_on: bool = False, phy_on: bool = False,
             count_switch=count_switch, ctrl_count=ctrl_count,
             wl_tx_flits=wl_tx_flits, wl_rx_flits=wl_rx_flits,
             awake_cycles=awake_cycles, sleep_cycles=sleep_cycles,
-            **mem,
+            **mem, **phy,
         )
 
     return step
+
+
+def _group_link(rows, member):
+    """Broadcast ARQ's group link: per slot, the worst (largest) service
+    time or PER threshold over its group's member links.  ``rows`` [G, B,
+    W] are the sender WI's table rows, ``member`` [G, B, V, W] the slots'
+    member masks; non-members count as 0."""
+    return torch.where(member, rows[:, :, None, :], 0).amax(-1)
+
+
+def _air_block(ss: SimStatic, st: SimState, d: Derived, t: int, post,
+               win2_wl, fwd, out_is_wl, wd_bv, fail_bv, drop, serv_t,
+               pkt_src, pkt_idx, mem: dict, mem_on: bool, living: bool,
+               NCp1: int, BIGC: int) -> dict:
+    """Per-(src WI, dst WI) pacing, air and energy counters of one cycle
+    (``phy_on``), scatter-free: the (sub-channel, receiver) air winner is
+    unique, so each pair sees at most one transmission per cycle — a
+    masked one-assignment over the [W, W] grid.  A multicast winner shows
+    in every member receiver's column; it is counted once, on its routed
+    (sender, anchor) pair.  Under ``living`` the attempts also split by
+    the pair's current rate entry; under ``mem_on`` a dropped request or
+    reply credits its requester's window back, a dropped request
+    tombstones its reply slot (``mem["outst"]``/``mem["dead"]`` are
+    updated), and lost read round trips are counted.  Returns the updated
+    leaves."""
+    G = fwd.shape[0]
+    N, K = ss.births.shape[1], ss.births.shape[2]
+    warr = d.warr
+    ws_ids = warr.to(i32)[:, None]                                # [W,1]
+    r_ids = (ws_ids % ss.rxw.clamp(min=1)[:, None, None]).clamp(
+        0, RXWMAX - 1)                                            # [G,W,1]
+    w2 = take2(win2_wl, r_ids.expand(G, WMAX, WMAX),
+               warr.expand(G, WMAX, WMAX))                        # [G,W,W]
+    v2 = w2 < BIGC
+    slot2 = torch.where(v2, w2 % NCp1, 0).long()
+
+    def at(x):               # per-slot field of each pair's winner
+        return take(x.reshape(G, -1), slot2)
+
+    txp = v2 & at(fwd) & at(out_is_wl)         & (take(ss.b_wi, slot2 // V) == ws_ids) & (at(wd_bv) == warr)
+    failp = txp & at(fail_bv)
+    out = dict(
+        pair_busy=torch.where(txp, t + at(serv_t), st.pair_busy),
+        wl_pair_flits=st.wl_pair_flits + post[:, None, None] * txp.to(i32),
+        wl_fail_flits=st.wl_fail_flits + post[:, None, None] * failp.to(i32))
+    if living:
+        # per-rate-entry attempt counters, attributed to the anchor pair's
+        # current entry (the pair's entry moves mid-run)
+        R = st.wl_rate_flits.shape[1]
+        rhot = torch.arange(R, dtype=i32, device=txp.device)[
+            :, None, None] == st.wl_rate_d[:, None]               # [G,R,W,W]
+        pc = post[:, None]
+        out.update(
+            wl_rate_flits=st.wl_rate_flits + pc * _sum_i32(
+                rhot & txp[:, None], (2, 3)),
+            wl_rate_fail=st.wl_rate_fail + pc * _sum_i32(
+                rhot & failp[:, None], (2, 3)))
+    if mem_on:
+        # every drop is an air-pair winner, so the grid sees each once
+        d_on = txp & at(drop)
+        nd = at(pkt_src).clamp(0, N - 1)
+        kd = at(pkt_idx).clamp(0, K - 1)
+        opd = torch.where(d_on, take2(ss.mem_op, nd, kd), 0)
+        is_rqd = (opd == 1) | (opd == 2)
+        is_repd = (opd == 3) | (opd == 4)
+        tgt_d = torch.where(
+            is_rqd, nd, torch.where(
+                is_repd, take2(ss.req_src, nd, kd).clamp(0, N - 1), -1))
+        n_ids = torch.arange(N, dtype=i32, device=tgt_d.device)
+        mem["outst"] = mem["outst"] - _sum_i32(
+            tgt_d[:, None] == n_ids[None, :, None, None], (2, 3))
+        rrd = take2(ss.reply_row, nd, kd).clamp(0, N - 1)
+        rsd = take2(ss.reply_slot, nd, kd).clamp(0, K - 1)
+        dflat = torch.where(is_rqd, rrd * K + rsd, -1).reshape(G, 1, -1)
+        hit = (torch.arange(N * K, dtype=i32, device=dflat.device)[
+            None, :, None] == dflat).any(-1)                      # [G,N*K]
+        mem["dead"] = st.dead | hit.reshape(G, N, K)
+        out["mem_drop_reads"] = st.mem_drop_reads + post * _sum_i32(
+            d_on & ((opd == 1) | (opd == 3)), (1, 2))
+    return out
 
 
 def _air_counted(ss: SimStatic, incoming, mc_id, mcid_c, b_ids):
@@ -1080,14 +1281,17 @@ def _has_groups(ss: SimStatic) -> bool:
 
 
 def run_cycles(ss: SimStatic, st: SimState, t0: int, t1: int, B: int,
-               mem_on: bool = False) -> SimState:
+               mem_on: bool = False, phy_on: bool = False,
+               drift_on: bool = False, reselect: bool = False) -> SimState:
     """Step lane-leading ``st`` through cycles ``[t0, t1)``, no freeze.
 
     The monolithic driver's loop, also used to continue from a carried
-    state (``repro_torch.carry``).  ``mem_on`` as in ``make_step``; the
-    multicast terms run when any lane has a multicast group.
+    state (``repro_torch.carry``).  The flags as in ``make_step``; the
+    multicast terms run when any lane has a multicast group.  Living
+    points get their window updates inside the step.
     """
-    step = make_step(B, mem_on=mem_on, mc_on=_has_groups(ss))
+    step = make_step(B, mem_on, phy_on, drift_on, reselect,
+                     mc_on=_has_groups(ss))
     d = derive(ss, B)
     with torch.no_grad():
         for t in range(t0, t1):
@@ -1096,12 +1300,12 @@ def run_cycles(ss: SimStatic, st: SimState, t0: int, t1: int, B: int,
 
 
 def _scan_point(ss: SimStatic, st: SimState, cycles: int, B: int,
-                mem_on: bool) -> SimState:
+                **flags) -> SimState:
     """Monolithic driver: every lane steps exactly ``cycles`` cycles.
 
     Kept as a differential oracle for the chunked driver.
     """
-    st = run_cycles(ss, st, 0, cycles, B, mem_on)
+    st = run_cycles(ss, st, 0, cycles, B, **flags)
     c = torch.full_like(st.cycles_run, cycles)
     return st._replace(cycles_run=c, drain_cycle=c.clone())
 
@@ -1124,18 +1328,29 @@ class PackedSim:
     dims: dict = dataclasses.field(default_factory=dict)
     mem_on: bool = False      # closed-loop memory path in the step
     mc_on: bool = False       # the table has multicast groups
+    phy_on: bool = False      # lossy-channel ARQ path in the step
+    drift_on: bool = False    # living channel: SNR aging walk
+    reselect: bool = False    # living channel: in-scan rate re-selection
+    phy_link: object = None   # phy.PhyLinkInfo (host-side, for metrics)
+
+    def flags(self) -> dict:
+        """The static flags of the reference's step program."""
+        return dict(mem_on=self.mem_on, phy_on=self.phy_on,
+                    drift_on=self.drift_on, reselect=self.reselect)
 
     def shape_key(self) -> tuple:
         """Hashable signature of the step program and of every padded
         array shape (batch grouping).
 
-        ``mem_on`` is part of the key as in the reference: it selects
-        another step program.  So is ``mc_on``, the port's own: a point
-        without multicast groups keeps the open-loop program even when it
-        shares its dims with a multicast trace.
+        ``mem_on``, ``phy_on``, ``drift_on`` and ``reselect`` are part of
+        the key as in the reference: each selects another step program
+        (the placeholder shapes alone cannot tell the two living flags
+        apart).  So is ``mc_on``, the port's own: a point without
+        multicast groups keeps the open-loop program even when it shares
+        its dims with a multicast trace.
         """
-        return (("mem_on", self.mem_on), ("mc_on", self.mc_on)) + tuple(
-            (k, tuple(v.shape)) for k, v in self.ss._asdict().items())
+        return tuple(self.flags().items()) + (("mc_on", self.mc_on),) \
+            + tuple((k, tuple(v.shape)) for k, v in self.ss._asdict().items())
 
 
 def pack_dims(topo: Topology, tt: TrafficTable,
@@ -1189,13 +1404,14 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
     ``device`` at the end.  ``floors`` raises padded dims so heterogeneous
     points share one shape (padding is semantically inert).  Trace tables
     (phases, multicast groups) and memory tables (closed-loop
-    request/reply) pack as in the reference; a ``phy_spec`` raises
-    ``NotImplementedError``: the lossy-PHY path is not ported yet.
+    request/reply) pack as in the reference.  ``phy_spec`` (a
+    ``phy.PhySweepSpec``) turns on the lossy-channel ARQ path on fabrics
+    with wireless interfaces, and with drift or re-selection the living
+    channel; wireline fabrics (and ``phy_spec=None``) pack the exact
+    ideal-channel program.
     """
     from repro_torch.phy.rates import pack_link_state
     dev = _device.resolve(device)
-    if phy_spec is not None:
-        raise NotImplementedError("lossy PHY: ROADMAP A7")
     fl = floors or {}
     Lw = topo.n_links
     n_inj = tt.n_sources
@@ -1275,11 +1491,17 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
             if int(b_dst[b]) in wi_set:
                 b_depth[b] = max(int(b_depth[b]), phy.pkt_flits)
 
-    # lossy PHY: inert here (phy_spec is None); the shared helper sets
-    # rx_hold (store-and-forward receivers) for tables with multicast
-    # groups and deepens their rx buffers, as in the reference
-    _, _, rx_hold = pack_link_state(
+    # lossy PHY: per-(src, dst)-WI rate/PER tables, inert without a spec
+    # or without a wireless medium; the helper deepens buffers and zeroes
+    # the rx buffers' epb, and sets rx_hold (store-and-forward receivers)
+    # also for tables with multicast groups
+    pli, phy_on, rx_hold = pack_link_state(
         topo, phy, tt, phy_spec, b_dst, b_depth, b_epb, rx0)
+    # living channel: SNR drift and/or in-scan re-selection embed the
+    # per-entry tables; static points keep (1, 1) placeholders
+    drift_on = bool(phy_on and phy_spec.drift_amp_db > 0.0)
+    reselect = bool(phy_on and phy_spec.reselect)
+    living = drift_on or reselect
 
     # arbitration candidate tables: buffers feeding each switch ...
     in_bufs: list[list[int]] = [[] for _ in range(S)]
@@ -1408,18 +1630,24 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
         stack_sw=stack_sw,
         t_row_hit=i32s(dram.t_row_hit), t_row_miss=i32s(dram.t_row_miss),
         max_outst=i32s(max_outst),
-        wl_serv=np.ones((WMAX, WMAX), np.int32),
-        wl_perq=np.zeros((WMAX, WMAX), np.int32),
-        rx_hold=np.bool_(rx_hold), max_retx=i32s(1),
-        phy_seed=np.uint32(0), ctrl_flits=i32s(phy.ctrl_packet_flits),
-        wl_rate0=np.zeros((1, 1), np.int32),
-        wl_snr=np.zeros((1, 1), np.float32),
-        wl_serv_r=np.ones(1, np.int32),
-        wl_perq_r=np.zeros((1, 1, 1), np.int32),
-        wl_gp_q=np.zeros((1, 1, 1), np.int32),
-        wl_gain_r=np.ones(1, np.float32), wl_gbps_r=np.ones(1, np.float32),
+        wl_serv=pli.serv if phy_on else np.ones((WMAX, WMAX), np.int32),
+        wl_perq=pli.perq if phy_on else np.zeros((WMAX, WMAX), np.int32),
+        rx_hold=np.bool_(rx_hold),
+        max_retx=i32s(phy_spec.max_retx if phy_on else 1),
+        # the u32 seed held in int64: torch has no uint32 arithmetic
+        phy_seed=np.int64(np.uint32(phy_spec.seed if phy_on else 0)),
+        ctrl_flits=i32s(phy.ctrl_packet_flits),
+        wl_rate0=pli.rate_idx if living else np.zeros((1, 1), np.int32),
+        wl_snr=pli.snr_pad if living else np.zeros((1, 1), np.float32),
+        wl_serv_r=pli.serv_r if living else np.ones(1, np.int32),
+        wl_perq_r=pli.perq_r if living else np.zeros((1, 1, 1), np.int32),
+        wl_gp_q=pli.gp_q if living else np.zeros((1, 1, 1), np.int32),
+        wl_gain_r=pli.gain_r if living else np.ones(1, np.float32),
+        wl_gbps_r=pli.gbps_r if living else np.ones(1, np.float32),
         wl_pkt_bits=np.float32(phy.pkt_flits * phy.flit_bits),
-        wl_drift_amp=np.float32(0.0), wl_drift_period=i32s(1),
+        wl_drift_amp=np.float32(phy_spec.drift_amp_db if phy_on else 0.0),
+        wl_drift_period=i32s(max(1, phy_spec.drift_period)
+                             if phy_on else 1),
     )
     ss = SimStatic(**{k: torch.from_numpy(np.asarray(v)).to(dev)
                       for k, v in fields.items()})
@@ -1427,7 +1655,8 @@ def pack(topo: Topology, rt: RoutingTables, tt: TrafficTable,
             "M": M, "P": P, "Y": Y, "BK": BK}
     return PackedSim(ss=ss, B=B, n_cores=topo.n_cores, Lw=Lw,
                      n_inj=n_inj, topo=topo, rt=rt, phy=phy, sim=sim,
-                     dims=dims, mem_on=mem_on, mc_on=Mn > 0)
+                     dims=dims, mem_on=mem_on, mc_on=Mn > 0, phy_on=phy_on,
+                     drift_on=drift_on, reselect=reselect, phy_link=pli)
 
 
 # --------------------------------------------------------------------------
@@ -1442,27 +1671,35 @@ def _state_dims(ps: PackedSim) -> tuple:
 
 
 def run_lanes(ss: SimStatic, st: SimState, B: int, budgets: Sequence[int],
-              driver: str = "chunked", mem_on: bool = False) -> SimState:
+              driver: str = "chunked", mem_on: bool = False,
+              phy_on: bool = False, drift_on: bool = False,
+              reselect: bool = False) -> SimState:
     """Drive lane-leading ``ss``/``st`` to each lane's budget.
 
     ``budgets`` are the lanes' ``ss.cycles`` on the host.
     ``driver="monolithic"`` runs the fixed-length oracle (one shared
-    budget).  ``mem_on`` as in ``make_step``; the multicast terms run
-    when any lane has a multicast group.
+    budget; living points get their window updates in the step alone).
+    The flags as in ``make_step``; the multicast terms run when any lane
+    has a multicast group.
     """
+    flags = dict(mem_on=mem_on, phy_on=phy_on, drift_on=drift_on,
+                 reselect=reselect)
     if driver == "monolithic":
         if len(set(budgets)) != 1:
             raise ValueError(
                 "monolithic driver needs one shared cycle budget; got "
                 f"{sorted(set(budgets))}")
-        return _scan_point(ss, st, budgets[0], B, mem_on)
+        return _scan_point(ss, st, budgets[0], B, **flags)
     if driver != "chunked":
         raise ValueError(f"unknown driver {driver!r}")
-    step = make_step(B, mem_on=mem_on, mc_on=_has_groups(ss))
+    step = make_step(B, **flags, mc_on=_has_groups(ss))
     d = derive(ss, B)
+    wfn = make_window_fn(ss, drift_on, reselect) \
+        if (drift_on or reselect) else None
     with torch.no_grad():
         return chunked.run_chunked(
-            lambda s, t: step(ss, d, s, t), ss, st, budgets, mem_on)
+            lambda s, t: step(ss, d, s, t), ss, st, budgets, mem_on,
+            window_fn=wfn)
 
 
 def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
@@ -1488,9 +1725,12 @@ def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
     ss = ss._replace(cycles=torch.tensor(budgets, dtype=i32,
                                          device=ss.cycles.device))
     ps0 = pss[0]
-    st = init_state(*_state_dims(ps0), mem_on=ps0.mem_on, lanes=len(pss),
+    st = init_state(*_state_dims(ps0), mem_on=ps0.mem_on,
+                    phy_on=ps0.phy_on,
+                    living=ps0.drift_on or ps0.reselect,
+                    R=int(ps0.ss.wl_serv_r.shape[0]), lanes=len(pss),
                     device=ss.cycles.device)
-    return run_lanes(ss, st, ps0.B, budgets, driver, ps0.mem_on)
+    return run_lanes(ss, st, ps0.B, budgets, driver, **ps0.flags())
 
 
 def run(ps: PackedSim, cycles: int | None = None,
@@ -1501,12 +1741,13 @@ def run(ps: PackedSim, cycles: int | None = None,
 
 
 def run_from(ss: SimStatic, st: SimState, driver: str = "chunked",
-             mem_on: bool = False) -> SimState:
+             **flags) -> SimState:
     """Run one point from a given (e.g. carried) state, cycle 0 to
     ``ss.cycles``; ``ss``/``st`` and the result have no lane axis.
-    ``mem_on`` must be the flag the state was made with."""
+    ``flags`` (``mem_on``, ``phy_on``, ``drift_on``, ``reselect``) must be
+    those the state was made with."""
     B = int(ss.b_dst.shape[0])
     out = run_lanes(SimStatic(*(x[None] for x in ss)),
                     SimState(*(x[None] for x in st)), B,
-                    [int(ss.cycles)], driver, mem_on)
+                    [int(ss.cycles)], driver, **flags)
     return SimState(*(x[0] for x in out))

@@ -9,8 +9,9 @@ port of ``repro.core.sweep``.
   packed with the group's max dims as floors — padding is semantically
   inert) so that, e.g., the three fabrics of one system size share one
   batch.  Cycle budgets and warm-ups are per-lane data.  Points whose
-  step programs differ (``mem_on``; with or without multicast groups)
-  split into separate batches by ``PackedSim.shape_key``.
+  step programs differ (``mem_on``, ``phy_on``, ``drift_on``,
+  ``reselect``; with or without multicast groups) split into separate
+  batches by ``PackedSim.shape_key``.
 
 Results equal ``[run_point(...) for each point]`` exactly.  The reference's
 ``devices`` argument (``pmap`` sharding over host devices) has no
@@ -50,8 +51,9 @@ class SweepPoint:
     ``workloads.Trace``) makes a phase-barrier trace point, ``mem`` (a
     ``memory.MemSweepSpec``) a closed-loop memory point, and
     ``closed_loop`` turns an ``app`` point's memory packets into round
-    trips.  ``phy_spec`` points raise ``NotImplementedError`` in the port
-    (ROADMAP A7).
+    trips, and ``phy_spec`` (a ``phy.PhySweepSpec``) turns the ideal
+    wireless medium into the lossy, possibly living, channel (wireline
+    fabrics ignore it and run the exact ideal program).
     """
 
     n_chips: int
@@ -99,7 +101,14 @@ def _build_point(p: SweepPoint):
                                  closed_loop=p.closed_loop, dram=p.dram)
     label = p.name or f"{topo.name}/load={p.load}/p_mem={p.p_mem}" \
         + (f"/{p.app}" if p.app else "") \
-        + ("/closed" if p.closed_loop else "")
+        + ("/closed" if p.closed_loop else "") \
+        + (f"/phy:{p.phy_spec.policy}@{p.phy_spec.link_budget_db}dB"
+           if p.phy_spec is not None else "") \
+        + (f"/drift={p.phy_spec.drift_amp_db}dB"
+           if p.phy_spec is not None and p.phy_spec.drift_amp_db > 0
+           else "") \
+        + ("/resel" if p.phy_spec is not None and p.phy_spec.reselect
+           else "")
     return topo, rt, tt, label
 
 

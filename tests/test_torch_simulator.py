@@ -173,6 +173,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_step_paths_raise():
-    for flag in ("phy_on", "drift_on", "reselect"):
-        with pytest.raises(NotImplementedError):
+    """Every step program is ported; the one combination the reference
+    refuses still raises: a living channel without the ARQ path."""
+    for flag in ("drift_on", "reselect"):
+        with pytest.raises(AssertionError, match="ARQ path"):
             tsim.make_step(64, **{flag: True})
+        assert callable(tsim.make_step(64, phy_on=True, **{flag: True}))
+    assert callable(tsim.make_step(64, phy_on=True))

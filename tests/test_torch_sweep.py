@@ -4,8 +4,8 @@
 one closed-loop memory point) must match the committed goldens (integers
 exact, floats rel 1e-6 — the bound of ``tests/test_golden_metrics.py``:
 the energy sums run in another order than XLA's); ``run_sweep_batched``
-must equal a ``run_point`` loop exactly; lossy-PHY points, whose engine
-path is not ported, must raise.
+must equal a ``run_point`` loop exactly; a ``phy_spec`` packs the lossy
+program on the wireless fabric and nothing on a wireline one.
 """
 import dataclasses
 import json
@@ -109,8 +109,23 @@ def system():
 
 
 def test_pack_rejects_phy_points(system):
+    """A ``phy_spec`` packs the lossy program on the wireless fabric; a
+    fabric without wireless interfaces rejects it and packs the exact
+    ideal-channel program (its key and tables unchanged)."""
     topo, rt = system
     tt = traffic.uniform_random(topo, 0.2, 0.2, 200, 64)
-    with pytest.raises(NotImplementedError, match="A7"):
-        simulator.pack(topo, rt, tt, topo.phy, SimParams(cycles=200),
+    ps = simulator.pack(topo, rt, tt, topo.phy, SimParams(cycles=200),
+                        phy_spec=PhySweepSpec(), device="cpu")
+    assert ps.phy_on and ps.phy_link is not None
+    assert dict(ps.shape_key()[:4])["phy_on"]
+    wired = build_xcym(4, 4, Fabric.SUBSTRATE)
+    rt_w = compute_routing(wired)
+    tt_w = traffic.uniform_random(wired, 0.2, 0.2, 200, 64)
+    a = simulator.pack(wired, rt_w, tt_w, wired.phy, SimParams(cycles=200),
                        phy_spec=PhySweepSpec(), device="cpu")
+    b = simulator.pack(wired, rt_w, tt_w, wired.phy, SimParams(cycles=200),
+                       device="cpu")
+    assert not a.phy_on and a.phy_link is None
+    assert a.shape_key() == b.shape_key()
+    for x, y in zip(a.ss, b.ss):
+        assert torch.equal(x, y)

@@ -18,11 +18,16 @@ REL = 1e-6
 
 
 def np_tree(tree) -> dict:
-    """A NamedTuple of (JAX or torch) arrays -> ``{name: np.ndarray}``."""
+    """A NamedTuple of (JAX or torch) arrays -> ``{name: np.ndarray}``.
+
+    uint32 leaves (the reference's ``SimStatic.phy_seed``) come back as
+    int64, the dtype the port holds them in (torch has no uint32
+    arithmetic); their values are unchanged."""
     out = {}
     for k, v in tree._asdict().items():
-        out[k] = v.detach().cpu().numpy() if hasattr(v, "detach") \
+        a = v.detach().cpu().numpy() if hasattr(v, "detach") \
             else np.asarray(v)
+        out[k] = a.astype(np.int64) if a.dtype == np.uint32 else a
     return out
 
 
@@ -102,7 +107,8 @@ def port_packed(ps):
         ss=carry.static_from_numpy(np_tree(ps.ss), "cpu"), B=ps.B,
         n_cores=ps.n_cores, Lw=ps.Lw, n_inj=ps.n_inj, topo=ps.topo,
         rt=ps.rt, phy=ps.phy, sim=ps.sim, dims=ps.dims, mem_on=ps.mem_on,
-        mc_on=bool(np.asarray(ps.ss.mc_member).any()))
+        mc_on=bool(np.asarray(ps.ss.mc_member).any()), phy_on=ps.phy_on,
+        drift_on=ps.drift_on, reselect=ps.reselect, phy_link=ps.phy_link)
 
 
 def port_continue(pss, sts, t0: int, t1: int) -> list:
@@ -116,6 +122,7 @@ def port_continue(pss, sts, t0: int, t1: int) -> list:
     st = [carry.state_from_numpy(np_tree(s), "cpu") for s in sts]
     ss = tsim.SimStatic(*(torch.stack(x) for x in zip(*ss)))
     st = tsim.SimState(*(torch.stack(x) for x in zip(*st)))
-    out = np_tree(tsim.run_cycles(ss, st, t0, t1, pss[0].B,
-                                  pss[0].mem_on))
+    ps0 = pss[0]
+    out = np_tree(tsim.run_cycles(ss, st, t0, t1, ps0.B, ps0.mem_on,
+                                  ps0.phy_on, ps0.drift_on, ps0.reselect))
     return [{k: v[g] for k, v in out.items()} for g in range(len(pss))]
