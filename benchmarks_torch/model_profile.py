@@ -1,14 +1,19 @@
 """Where a model's forward and decode ticks spend their time on the card.
 
-    python3 benchmarks_torch/model_profile.py [--arch granite-8b|mamba2-1.3b]
+    python3 benchmarks_torch/model_profile.py [--arch ARCH] [--layers N]
 
 Builds the model at full size (granite-8b: 36 layers; mamba2-1.3b: 48;
-seeded weights on the card) and reports, from ``torch.profiler`` traces:
+hymba-1.5b: 32; mixtral-8x22b at full width needs ``--layers 8`` to fit
+one 80 GB card; seeded weights on the card) and reports, from
+``torch.profiler`` traces:
 
 - one ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"``: wall s,
   device-busy s (the sum of kernel durations), the device's idle share,
-  and device time grouped into this repo's kernels (the tensor-core flash
-  or SSD kernel), matrix products and the rest;
+  and device time grouped into this repo's kernels (the flash kernel, the
+  tensor-core and the CUDA-core SSD kernels), matrix products, the MoE
+  dispatch (sorts, ``searchsorted``, index scatters and gathers: the
+  kernels of ``models/moe.py``'s dispatch and combine, and the embedding's
+  one gather) and the rest;
 - 16 engine decode ticks with 4 slots and a 4096-slot cache (the SSM
   state, for mamba2) at positions near 64, as in ``chip_smoke.py``'s
   serve phase: host ms per
@@ -47,6 +52,10 @@ def _trace(fn):
     return wall_us, kernels, by_name
 
 
+DISPATCH = ("sort", "searchsorted", "index_put", "indexing_backward",
+            "index_elementwise", "scatter", "gather", "cub::")
+
+
 def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
@@ -57,6 +66,8 @@ def _group(name: str) -> str:
         return "SSD CUDA-core kernel"
     if "gemm" in n or "sm90" in n or "cutlass" in n or "nvjet" in n:
         return "matrix products"
+    if any(k in n for k in DISPATCH):
+        return "MoE dispatch"
     return "other"
 
 
@@ -65,6 +76,8 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("model_profile: no CUDA device", file=sys.stderr)
@@ -79,6 +92,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.scaled(n_layers=args.layers)
     model = Model(cfg, impl="pallas")
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     gen = torch.Generator(device=dev).manual_seed(3)

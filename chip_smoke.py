@@ -20,7 +20,7 @@ loudly:
    card, held against ``tests/goldens/*.json`` (integers exact, floats
    rel 1e-6);
 5. fig2 at paper width: substrate, interposer and wireless 4C4M, load 1.0,
-   4 000 cycles with 1 000 of warm-up (the paper's 10 000 cut for this
+   2 000 cycles with 500 of warm-up (the paper's 10 000 cut for this
    script's time limit), in one batched call, with the
    kernel launch counts set to 0 before and read after; held against
    ``tests/torch_fixtures/fig2_reference.json`` (written by the JAX
@@ -31,12 +31,14 @@ loudly:
    set to 0; holds each case against ``ref.attention_ref`` at the cases
    of ``tests/test_kernels_flash.py`` (f32 2e-5, bf16 2e-2) and at the
    shapes of the model path (granite-8b, gemma-7b's hd 256, hymba-1.5b's
-   window, Sq != Skv with ``q_offset``; bf16 1e-3 + 2^-7 |o|, and granite
-   and gemma in f32 at 2e-5), each case naming its route and moving its
-   route's count by one; times at the bf16 path shapes of the tensor-core
-   kernel and of the CUDA-core kernel through its own entry point, and at
-   granite-8b's shape also of the plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   window, mixtral-8x22b, Sq != Skv with ``q_offset``; bf16 1e-3 + 2^-7
+   |o|, and granite and gemma in f32 at 2e-5), each case naming its route
+   and moving its route's count by one; times at the bf16 path shapes of
+   the tensor-core kernel and of the CUDA-core kernel through its own
+   entry point, and at granite-8b's, hymba-1.5b's and mixtral-8x22b's
+   shapes also of the plain version and ``scaled_dot_product_attention``
+   (a yardstick the port never calls; hymba's window as a mask) with the
+   name of the kernel SDPA ran;
    the CUDA-core kernel, its plain version and SDPA on granite-8b's f32
    inputs;
 7. SSD, two kernels chosen by ``ssd_scan.route``: the tensor-core kernel
@@ -54,6 +56,9 @@ loudly:
    model path asks (2^-7: a flipped rounding of one score); times at the
    model's shape, scores rounded, of the tensor-core kernel, the
    CUDA-core kernel through its own entry point and the plain version;
+   and the CUDA-core kernel at its own path's cell, hymba-1.5b's forward
+   (B 2 x 64 heads of P 50, N 16, bf16, scores rounded; 2^-7), timed
+   beside its plain version;
 8. granite-8b at full width and 2 layers against
    ``tests/torch_fixtures/granite8b_2l_reference.json`` (written by the JAX
    package with the same ``carry.numpy_params`` weights): ``Model.loss``
@@ -86,8 +91,8 @@ loudly:
     serving 8 requests on 4 slots (no kernel launch);
 12. fig8 at paper width: the grid of ``benchmarks/fig8_memory.py``
     (closed-loop memory on 4C4M's three fabrics at loads 0.05-1.0 with
-    windows 4 and 16, and canneal closed-loop; 32 points, 3 000 cycles
-    with 1 000 of warm-up, fig8's 6 000 cut for this script's time limit)
+    windows 4 and 16, and canneal closed-loop; 32 points, 2 000 cycles
+    with 500 of warm-up, fig8's 6 000 cut for this script's time limit)
     in one ``run_sweep_batched`` call, held against
     ``tests/torch_fixtures/fig8_reference.json`` (every ``Metrics``
     field: integers exact, floats rel 1e-6), with fig8's own checks (the
@@ -97,12 +102,16 @@ loudly:
 14. fig7 at paper size: the gemma-7b one-shot and the compiled psum
     traces of ``benchmarks/fig7_ml_traces.py`` (16 devices on 4C4M, the
     psum step's HLO text from ``tests/torch_fixtures/fig7_psum.hlo.txt``)
-    on three fabrics, a 96 000-cycle budget with early drain, in one
-    call, held against ``tests/torch_fixtures/fig7_reference.json``
-    (``drain_cycle``, ``phase_end`` and the air counters included); every
-    trace completes and the cycle-vs-analytic link energy is within 2x.
-    fig7's three synthetic ring traces drain only after 63 488-78 848
-    cycles and are left to ``benchmarks_torch/fig7_traces.py``;
+    on three fabrics (the one-shot trace on two: its substrate lane
+    drains last, at 11 008 cycles, where the others drain by 3 840, and
+    the interposer lane runs the same wireline program), a 96 000-cycle
+    budget with early drain, in one call, held against
+    ``tests/torch_fixtures/fig7_reference.json`` (``drain_cycle``,
+    ``phase_end`` and the air counters included); every trace completes
+    and the cycle-vs-analytic link energy is within 2x.  fig7's three
+    synthetic ring traces drain only after 63 488-78 848 cycles and are
+    left, with the one-shot substrate lane, to
+    ``benchmarks_torch/fig7_traces.py``;
 15. fig9 at paper size, the lossy and living PHY: the quality grid of
     ``benchmarks/fig9_lossy_channel.py`` (link budgets 13-26 dB x
     adaptive/fixed:0/fixed:-1 x three fabrics, 4C4M at load 0.5, 6 000
@@ -119,6 +128,35 @@ loudly:
     and online >= every fixed under drift, the trace complete with nothing
     dropped), and the drifted PER tables and re-selected rates of every
     window of the drift points.
+
+16. hymba-1.5b at full width and 2 layers against
+    ``tests/torch_fixtures/hymba1p5b_2l_reference.json`` (the JAX package
+    op by op; ``carry.numpy_params`` weights with the norm weights drawn
+    apart, ``ones_jitter``): ``Model.loss`` with ``impl="pallas"`` on a
+    2560-token batch past the 2048-token window (2 launches of the
+    tensor-core flash kernel, 2 of the CUDA-core SSD kernel: hymba's SSM
+    heads have P 50), the top-5 logits at 10 positions across chunk edges
+    and past the window, and the greedy engine; faults: the heads summed
+    rather than averaged, the SSM heads normed with ``ln1``;
+17. hymba-1.5b at full size (32 layers): the forward at B 2 x S 4096
+    (32 tensor-core flash launches with the window, 32 CUDA-core SSD
+    launches, no tensor-core SSD launch) against ``impl="naive"`` layer by
+    layer, as phase 11, the logit rows and the one-ulp sensitivity
+    reported; serving as phase 9; faults: ``y_diag`` zeroed, keys 128 back
+    dropped;
+18. mixtral-8x22b at full width and 2 layers against
+    ``tests/torch_fixtures/mixtral8x22b_2l_reference.json``: the loss, the
+    top-5 logits, the port's dispatch on the reference's router
+    probabilities of each layer (every one of the 512 tokens' top-2
+    experts and every assignment dropped for capacity, exactly), the
+    port's own router probabilities (2^-5 of each token's largest; the
+    tokens this moves to another expert are reported) and the greedy
+    engine; faults: top-k ties broken toward the higher expert, capacity
+    + 1; ``torch.topk`` in place of the stable sort is reported;
+19. mixtral-8x22b at full width and 8 of its 56 layers (one 80 GB card):
+    the forward (8 tensor-core flash launches) against ``impl="naive"``
+    layer by layer (a one-ulp change can move a token to another expert),
+    serving; faults as phase 9.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
@@ -317,11 +355,14 @@ FLASH_CASES = [   # tests/test_kernels_flash.py
 FLASH_PATH = {    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name)
     "granite-8b": (2, 4096, 4096, 32, 8, 128, True, 0, "bfloat16"),
     "gemma-7b": (1, 4096, 4096, 16, 16, 256, True, 0, "bfloat16"),
-    "hymba-1.5b": (1, 4096, 4096, 25, 5, 64, True, 2048, "bfloat16"),
+    "hymba-1.5b": (2, 4096, 4096, 25, 5, 64, True, 2048, "bfloat16"),
+    "mixtral-8x22b": (2, 4096, 4096, 48, 8, 128, True, 0, "bfloat16"),
     "granite-8b q_offset": (1, 1024, 4096, 32, 8, 128, True, 0, "bfloat16"),
     "granite-8b f32": (2, 4096, 4096, 32, 8, 128, True, 0, "float32"),
     "gemma-7b f32": (1, 4096, 4096, 16, 16, 256, True, 0, "float32"),
 }
+# the path shapes also timed against the plain version and SDPA
+FLASH_LIBRARY = ("granite-8b", "hymba-1.5b", "mixtral-8x22b")
 FLASH_PATH_TOL = {"bfloat16": (1e-3, 2.0 ** -7), "float32": (2e-5, 2e-5)}
 SSD_CASES = [     # tests/test_kernels_ssd.py: (BH, c, Q, P, N, dtype, tol)
     (2, 2, 16, 8, 16, "float32", 1e-4),
@@ -339,6 +380,7 @@ SSD_TC_CASES = [
     (1, 64, 3, 128, 64, 128),
 ]
 SSD_TC_PATH = (2, 64, 32, 128, 64, 128)    # mamba2-1.3b forward, B 2 x 4096
+SSD_CC_PATH = (2, 64, 32, 128, 50, 16)     # hymba-1.5b forward, B 2 x 4096
 SSD_TC_TOL = 1e-4                          # of each output's largest entry
 # With the scores rounded to bf16 (the model path), kernel and plain
 # version each round their own f32 sums: where those differ in the last
@@ -347,6 +389,9 @@ SSD_TC_TOL = 1e-4                          # of each output's largest entry
 # shape).  Held to 2^-7 of each output's largest entry, as ops.ssd's
 # bf16-rounded states are.
 SSD_TC_ROUNDED_TOL = 2.0 ** -7
+# mixtral-8x22b's depth on one 80 GB card: 8 of 56 layers (~40 GB of
+# weights; each layer's experts alone are ~4.8 GB)
+MIXTRAL_LAYERS = 8
 GRANITE_LOSS_RTOL = 1e-3     # 2 layers, port on the card vs JAX on the CPU
 FULL_LOSS_RTOL = 1e-3        # pallas (f32 softmax) vs naive (bf16 p)
 # Logits, relative to the largest reference logit.  The loss of random
@@ -364,14 +409,18 @@ POSITIONS_MAMBA = [0, 1, 127, 128, 2047, 2048, 4000, 4095]   # chunk edges
 
 @contextlib.contextmanager
 def swapped(obj, name: str, value):
-    """``obj.name = value`` inside the block: a kernel's plain version in
-    its caller, or a fault planted to show that a check sees it."""
-    old = getattr(obj, name)
-    setattr(obj, name, value)
+    """``obj.name = value`` (``obj[name]`` for a dict) inside the block: a
+    kernel's plain version in its caller, or a fault planted to show that
+    a check sees it."""
+    get, put = ((obj.__getitem__, obj.__setitem__) if isinstance(obj, dict)
+                else (lambda n: getattr(obj, n),
+                      lambda n, v: setattr(obj, n, v)))
+    old = get(name)
+    put(name, value)
     try:
         yield
     finally:
-        setattr(obj, name, old)
+        put(name, old)
 
 
 def logits_at(model, params, tokens, positions):
@@ -435,29 +484,128 @@ def planted_faults(faults: dict, model, params, batch, measure,
     return out
 
 
-def ssm_layer_errors(model, params, tokens) -> list:
-    """Each layer of a pure-SSM model with ``impl="pallas"`` against
-    ``impl="naive"`` on the same input: the residual stream of the naive
-    forward.  Returns each layer's max abs difference of the mixer's
-    output over naive's largest entry."""
+def layer_errors(model, params, tokens) -> list:
+    """Each layer's sequence mixer (``transformer.mixer``: attention, SSM,
+    or both) with ``impl="pallas"`` against ``impl="naive"`` on the same
+    input: the residual stream of the naive forward.  Returns each layer's
+    max abs difference of the mixer's output over naive's largest entry."""
     import torch
-    from repro_torch.models import ssm
     from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import norm
     cfg = model.cfg
     x = tf.embed(params["embed"], tokens).to(torch.bfloat16)
+    pos = torch.arange(x.shape[1], device=x.device)
     errs = []
     with torch.no_grad():
         for i in range(cfg.n_layers):
             lp = tf.layer_params(params["layers"], i)
-            h = norm(x, lp["ln1"], cfg.norm)
-            want, _ = ssm.ssm_forward(h, lp["ssm"], cfg, impl="naive")
-            got, _ = ssm.ssm_forward(h, lp["ssm"], cfg, impl="pallas")
+            want, got = (tf.mixer(cfg, x, lp, positions=pos, causal=True,
+                                  impl=impl) for impl in ("naive", "pallas"))
             want = want.float()
             errs.append(float((got.float() - want).abs().max()
                               / want.abs().max()))
             x = x + want.to(x.dtype)
+            if "ffn" in lp:
+                x = x + tf.ffn(cfg, x, lp)
     return errs
+
+
+@contextlib.contextmanager
+def moe_routing():
+    """Every MoE layer call inside the block: its router probabilities
+    and top-k experts, from wrapped ``moe.top_k`` and ``moe.dispatch_plan``
+    (``{"probs": [T, E], "experts": [T, k]}`` per call)."""
+    from repro_torch.models import moe
+    calls = []
+    real_top_k, real_plan = moe.top_k, moe.dispatch_plan
+
+    def top_k(probs, k):
+        calls.append({"probs": probs})
+        return real_top_k(probs, k)
+
+    def plan(experts, n_experts, cap):
+        calls[-1]["experts"] = experts
+        return real_plan(experts, n_experts, cap)
+
+    with swapped(moe, "top_k", top_k), swapped(moe, "dispatch_plan", plan):
+        yield calls
+
+
+def dispatch_mismatches(cfg, routing: list, dev) -> int:
+    """The port's dispatch (``moe.top_k``, ``moe.capacity``,
+    ``moe.dispatch_plan``) applied to the reference's own router
+    probabilities of each layer: tokens whose top-k experts differ from
+    the reference's, plus dropped assignments in one list but not the
+    other.  An integer function of the probabilities, held exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    n = 0
+    for w in routing:
+        probs = torch.tensor(w["probs"], dtype=torch.float32, device=dev)
+        _, experts = moe.top_k(probs, cfg.top_k)
+        plan = moe.dispatch_plan(experts, cfg.n_experts,
+                                 moe.capacity(cfg, probs.shape[0]))
+        n += int((experts.cpu().numpy() != np.array(w["experts"]))
+                 .any(-1).sum())
+        got = {tuple(r) for r in moe.dropped(plan).cpu().tolist()}
+        n += len(got ^ {tuple(r) for r in w["dropped"]})
+    return n
+
+
+def own_routing(calls, routing: list) -> dict:
+    """The port's own forward against the reference's routing, layer by
+    layer: the router probabilities' largest deviation relative to each
+    token's largest probability, and the tokens whose top-k experts
+    differ.  Only the first layer's probabilities can be held (to
+    ``LOGIT_REL``): its router reads the attention output of the same
+    embeddings, and its bf16 logits round the other way only where two
+    summation orders differ, so a token changes experts only at a near
+    tie; from the second layer on, a token that changed experts, or that
+    an expert's queue dropped in its place, carries an O(1) different
+    input, which the later deviations report."""
+    import numpy as np
+    if len(calls) != len(routing):
+        return dict(prob_rel_err=[math.inf], tokens_rerouted=[-1])
+    errs, moved = [], []
+    for c, w in zip(calls, routing):
+        got, want = c["probs"].float().cpu().numpy(), np.array(w["probs"])
+        errs.append(float((np.abs(got - want).max(1) / want.max(1)).max()))
+        moved.append(int((c["experts"].cpu().numpy()
+                          != np.array(w["experts"])).any(-1).sum()))
+    return dict(prob_rel_err=errs, tokens_rerouted=moved)
+
+
+def moe_faults(moe) -> dict:
+    """Faults in the MoE layer: top-k ties broken toward the higher expert
+    (the order ``torch.topk`` does not promise), and one more slot per
+    expert than the reference's capacity."""
+    real_top_k, real_cap = moe.top_k, moe.capacity
+
+    def higher_first(probs, k):
+        vals, idx = real_top_k(probs.flip(-1), k)
+        return vals, probs.shape[-1] - 1 - idx
+
+    return {"ties to the higher expert": (moe, "top_k", higher_first),
+            "capacity + 1": (moe, "capacity",
+                             lambda cfg, T: real_cap(cfg, T) + 1)}
+
+
+def hybrid_faults(tf, params) -> dict:
+    """Faults in the hybrid layer: the heads summed rather than averaged,
+    and the SSM heads normed with ``ln1`` rather than ``ln_ssm`` (their
+    weights differ in a fixture drawn with ``ones_jitter``)."""
+    return {"heads summed": (tf, "mix_heads", lambda a, s: a + s),
+            "ln1 for the SSM heads": (params["layers"], "ln_ssm",
+                                      params["layers"]["ln1"])}
+
+
+FLASH_TC = ("flash_attention_tc", "flash_attention")   # the count of
+SSD_TC = ("ssd_scan_tc", "ssd_scan")    # a tensor-core route, and of both
+
+
+def per_layer(n: int, *kernels) -> dict:
+    """Expected launch counts: ``n`` for each count named."""
+    return {k: n for k in kernels}
 
 
 def expect_counts(tag: str, got: dict, want: dict) -> None:
@@ -514,6 +662,27 @@ def build_report(_build, logs: dict) -> None:
     say("build", "ssd_scan_tc dynamic shared memory (bytes by Q, P, N): "
         + json.dumps({str(q): ssd_scan.smem_bytes("tensor_core", *q)
                       for q in shapes}))
+    q = SSD_CC_PATH[3:]
+    say("build", f"ssd_scan (CUDA cores) dynamic shared memory at hymba's "
+        f"(Q, P, N) {q}: {ssd_scan.smem_bytes('cuda_core', *q)} bytes")
+
+
+def top_kernel(fn) -> str:
+    """The name of the CUDA kernel that takes the most time in one call
+    of ``fn`` (which backend a library call chose), from
+    ``torch.profiler``."""
+    import torch
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    for _ in range(2):           # a trace has come back empty once in three
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            return max(evs,
+                       key=lambda e: e.time_range.elapsed_us()).name[:160]
+    return "not measured (the profiler saw no CUDA kernel)"
 
 
 def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
@@ -611,15 +780,24 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
                 rec["cuda_core_ms"] = time_ms(
                     lambda: flash_attention.launch_route(
                         "cuda_core", q, k, v, o, **kw), iters=3)
-            if tag.startswith("granite-8b") and not q_offset:
+            if not q_offset and tag.split()[0] in FLASH_LIBRARY:
                 rec["plain_ms"] = time_ms(lambda: ref.attention_ref(
                     q, k, v, **kw), iters=3)
                 q4, k4, v4 = (t.view(B, -1, t.shape[1], hd)
                               for t in (q, k, v))
-                rec["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, is_causal=causal, enable_gqa=True),
-                    iters=10)
+                mask = None
+                if window:          # SDPA takes a window only as a mask
+                    pos = torch.arange(Sq, device=dev)
+                    mask = (pos[None] <= pos[:, None]) \
+                        & (pos[None] > pos[:, None] - window)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True)
+
+                rec["library_ms"] = time_ms(library, iters=10)
+                rec["library_kernel"] = top_kernel(library)
             rec["tflops"] = flops / rec["ms"] / 1e9
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         rows.append(rec)
@@ -758,14 +936,7 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
         rec["ops_ssd_plain_ms"] = time_ms(
             lambda: ops.ssd(x, dtv, A, B, C, chunk=Q), iters=5)
     say("ssd", json.dumps(rec))
-    cuda_core = dict(
-        name="ssd_intra_chunk", route="cuda",
-        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan.py:56",
-        launches=path["ssd_scan"], path="ops.ssd, f32 at mamba2-1.3b's "
-        "shape (1 per call)", max_abs_err=err, ms=rec["ms"],
-        plain_ms=rec["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, shape=[b * h, c, Q, p, n], dtype="float32")
+    mamba_f32_cell = rec
 
     # the tensor-core kernel: bf16 x, B, C by group, f32 dt and A
     def tc_inputs(G, heads, c, Q, P, N):
@@ -816,6 +987,7 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
     rec["tflops"] = flops / rec["ms"] / 1e9
     rec["share_of_bound"] = bound_ms / rec["ms"]
     say("ssd", json.dumps(rec))
+
     tc = dict(name="ssd_intra_chunk_tc", route="cuda",
               source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
               replaces="src/repro/kernels/ssd_scan.py:56",
@@ -824,14 +996,54 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
               bound_by=bound_by, library_ms=None,
               cuda_core_ms=rec["cuda_core_ms"], shape=[G * heads, c, Q, P, N],
               heads=heads, dtype="bfloat16")
+    # the CUDA-core kernel on its main path: hymba-1.5b's forward cell (B 2
+    # x 64 heads of P 50, N 16, 32 chunks of 128; bf16 x, B and C by group,
+    # the scores rounded to bf16 as the model path asks)
+    G, heads, c, Q, P, N = SSD_CC_PATH
+    args = tc_inputs(G, heads, c, Q, P, N)
+    if ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) != "cuda_core":
+        raise AssertionError("ssd: hymba's cell is not on the CUDA-core "
+                             "route")
+    kw = dict(heads=heads, round_scores=True)
+    err = check("hymba-1.5b forward cell", args, SSD_TC_ROUNDED_TOL,
+                scaled=True, **kw)
+    cells = G * heads * c
+    tri = Q * (Q + 1) // 2
+    flops = 2.0 * cells * (tri * N + tri * P + Q * P * N)
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + 4 * cells * (Q * P + P * N + 1)
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    hy = dict(case="hymba-1.5b forward cell", route="cuda_core",
+              BH=G * heads, c=c, Q=Q, P=P, N=N, heads=heads,
+              dtype="bfloat16", round_scores=True, max_abs_err=err,
+              tol=f"{SSD_TC_ROUNDED_TOL} x max|want|", bound_ms=bound_ms,
+              bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+              ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*args, **kw)),
+              plain_ms=time_ms(lambda: plain(*args, **kw), iters=5),
+              power=nvidia_smi())
+    hy["share_of_bound"] = bound_ms / hy["ms"]
+    say("ssd", json.dumps(hy))
+    cuda_core = dict(
+        name="ssd_intra_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56",
+        launches=None, max_abs_err=err, ms=hy["ms"],
+        plain_ms=hy["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=[G * heads, c, Q, P, N], heads=heads,
+        dtype="bfloat16", ops_ssd_path=dict(
+            path="ops.ssd, f32 at mamba2-1.3b's shape (1 per call)",
+            launches=path["ssd_scan"], cell=mamba_f32_cell))
     return tc, cuda_core
 
 
-def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
-                    faults: dict) -> dict:
+def phase_reference(dev, kmods, tag: str, fixture: str, expect: dict,
+                    faults) -> dict:
     """A model at full width and 2 layers vs the JAX package's fixture;
-    ``Model.loss`` must launch the tensor-core kernel ``kernel`` once per
-    layer and nothing else."""
+    ``Model.loss`` must launch the kernels as ``expect`` says (per
+    forward) and nothing else.  ``faults(params)``: the faults the logit
+    check must reject.  A fixture with ``routing`` (MoE) also holds every
+    layer's top-k experts per token and its dropped assignments exactly,
+    and its check rejects a fault that moves either."""
     import numpy as np
     import torch
     from repro_torch import carry
@@ -839,11 +1051,16 @@ def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Engine, Request
 
+    t0 = time.perf_counter()
     fx = json.loads((ROOT / "tests" / "torch_fixtures" / fixture)
                     .read_text())
     cfg = get_config(fx["arch"]).scaled(n_layers=fx["n_layers"])
-    params = carry.params_from_jax(
-        carry.numpy_params(cfg, fx["weights_seed"]), device=dev)
+    params = carry.numpy_params(
+        cfg, fx["weights_seed"], ones_jitter=fx.get("ones_jitter", 0.0),
+        leaf_fn=lambda name, a: carry.leaf_to_device(name, a, dev),
+        rounded=False)
+    torch.cuda.synchronize()
+    t_weights = time.perf_counter() - t0
     model = Model(cfg, impl="pallas")
     lb = fx["loss_batch"]
     batch = {k: torch.tensor(lb[k], dtype=torch.int32, device=dev)
@@ -852,8 +1069,7 @@ def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
     with torch.no_grad():
         loss = float(model.loss(params, batch))
     path = counts(kmods)
-    expect_counts(f"{tag} Model.loss", path,
-                  {kernel: cfg.n_layers, kernel[:-3]: cfg.n_layers})
+    expect_counts(f"{tag} Model.loss", path, expect)
     if abs(loss - fx["loss"]) > GRANITE_LOSS_RTOL * abs(fx["loss"]):
         raise AssertionError(f"2-layer loss {loss} vs reference "
                              f"{fx['loss']} (rel tol {GRANITE_LOSS_RTOL})")
@@ -862,24 +1078,49 @@ def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
     # fixture's positions: top-5 values, relative to each position's largest
     f = fx["forward"]
     fids, fvals = np.array(f["top_ids"]), np.array(f["top_vals"])
+    routing = fx.get("routing")
 
     def fixture_err(lg) -> float:
         got = np.take_along_axis(lg.cpu().numpy(), fids, 1)
         return float((np.abs(got - fvals).max(1)
                       / np.abs(fvals).max(1)).max())
 
-    with torch.no_grad():
-        lg = logits_at(model, params, batch["tokens"], f["positions"])
-    fwd_err = fixture_err(lg)
+    def forward():
+        """Logits at the fixture's positions, their top-5 error and, for
+        MoE, the routing of every layer."""
+        with moe_routing() as calls, torch.no_grad():
+            lg = logits_at(model, params, batch["tokens"], f["positions"])
+        return lg, fixture_err(lg), calls
+
+    lg, fwd_err, calls = forward()
     top1 = lg.argmax(1).tolist()
     if fwd_err > LOGIT_REL or any(a not in ids
                                   for a, ids in zip(top1, fids.tolist())):
         raise AssertionError(f"2-layer forward logits vs reference: rel err "
                              f"{fwd_err} (tol {LOGIT_REL}), argmax {top1}")
-    faults = planted_faults(
-        faults, model, params, batch,
-        lambda: fixture_err(logits_at(model, params, batch["tokens"],
-                                      f["positions"])), LOGIT_REL)
+    extra = {}
+    if routing:
+        from repro_torch.models import moe
+        extra = own_routing(calls, routing)
+        extra["dispatch_mismatches"] = dispatch_mismatches(cfg, routing, dev)
+        if extra["prob_rel_err"][0] > LOGIT_REL \
+                or extra["dispatch_mismatches"]:
+            raise AssertionError(f"{tag} routing vs reference: {extra}")
+        extra.update(dropped_per_layer=[len(r["dropped"]) for r in routing],
+                     capacity=routing[0]["cap"])
+        # ``torch.topk`` in place of the stable sort: reported, not a
+        # planted fault (its order of ties is not promised either way)
+        with swapped(moe, "top_k", lambda p, k: torch.topk(p, k)):
+            extra["torch_topk_dispatch_mismatches"] = dispatch_mismatches(
+                cfg, routing, dev)
+
+    def measure() -> float:
+        err = forward()[1]
+        return max(err, dispatch_mismatches(cfg, routing, dev)) if routing \
+            else err
+
+    faults = planted_faults(faults(params), model, params, batch, measure,
+                            LOGIT_REL)
 
     g = fx["greedy"]
     # teacher-forced on the reference's tick inputs
@@ -935,34 +1176,36 @@ def phase_reference(dev, kmods, tag: str, fixture: str, kernel: str,
             compared += 1
     res = dict(loss=loss, loss_ref=fx["loss"],
                loss_rel_err=abs(loss - fx["loss"]) / abs(fx["loss"]),
-               launches_per_loss=path,
+               launches_per_loss=path, weights_s=t_weights,
                forward_top5_rel_err=fwd_err, planted_faults=faults,
+               **extra,
                top5_worst_rel_err=worst, greedy_tokens_compared=compared,
                greedy_tokens_total=sum(len(o) for o in g["outputs"]),
                possible_flips=sum(ties.values()), outputs=[r.out for r in reqs],
-               engine_launches=serve_path)
+               engine_launches=serve_path, wall_s=time.perf_counter() - t0)
     say(tag, json.dumps(res))
     del params, cache
     torch.cuda.empty_cache()
     return res
 
 
-def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
-               faults: dict, positions, forced=None,
-               by_layer: bool = False) -> dict:
-    """A model at full size: the forward with the kernel (the tensor-core
-    kernel ``kernel`` once per layer, nothing else) against
-    ``impl="naive"``, and serving.  ``forced``: ``(label, obj, attribute,
-    fn)``, a second timing of the forward with ``fn`` in place of
-    ``obj.attribute`` (another route of the kernel).
+def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
+               faults: dict, positions, forced=None, by_layer: bool = False,
+               layers: int = 0) -> dict:
+    """A model at full size (``layers``: a cut depth, at full width): the
+    forward with the kernels (launched as ``expect`` says, nothing else)
+    against ``impl="naive"``, and serving.  ``forced``: ``(label, obj,
+    attribute, fn)``, a second timing of the forward with ``fn`` in place
+    of ``obj.attribute`` (another route of the kernel).
 
     The check, and the faults it must reject: whole logit rows at
-    ``positions`` within ``FULL_LOGIT_REL``; with ``by_layer`` (a pure-SSM
-    model, whose random-weight logits move by their whole scale after 48
-    layers for a one-ulp change of one input, measured here as
-    ``sensitivity``) each layer's output on naive's residual stream
-    within ``LOGIT_REL`` (``ssm_layer_errors``), the logit rows reported
-    beside it."""
+    ``positions`` within ``FULL_LOGIT_REL``; with ``by_layer`` (a model
+    with SSM layers, whose random-weight logits move by their whole scale
+    after many layers for a one-ulp change of one input, or with MoE
+    layers, where such a change can move a token to another expert; both
+    measured here as ``sensitivity``) each layer's sequence mixer on
+    naive's residual stream within ``LOGIT_REL`` (``layer_errors``), the
+    logit rows reported beside it."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
@@ -970,6 +1213,8 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
     from repro_torch.serve.sampler import SamplerConfig
 
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
     model = Model(cfg, impl="pallas")
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
@@ -988,8 +1233,7 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
         loss_p = float(model.loss(params, batch))
         t_fwd = time.perf_counter() - t
         path = counts(kmods)
-        expect_counts(f"{tag} forward", path,
-                      {kernel: cfg.n_layers, kernel[:-3]: cfg.n_layers})
+        expect_counts(f"{tag} forward", path, expect)
         peak_fwd = torch.cuda.max_memory_allocated(dev)
         forced_s = None
         if forced is not None:
@@ -1031,12 +1275,12 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
         with swapped(tf, "embed", nudged), torch.no_grad():
             extra["sensitivity"] = naive_err(logits_at(
                 naive, params, batch["tokens"], positions))
-        errs = ssm_layer_errors(model, params, batch["tokens"])
+        errs = layer_errors(model, params, batch["tokens"])
         extra["layer_errs"] = errs
         err, limit = max(errs), LOGIT_REL
 
         def measure():
-            return max(ssm_layer_errors(model, params, batch["tokens"]))
+            return max(layer_errors(model, params, batch["tokens"]))
     else:
         err, limit = logit_err, FULL_LOGIT_REL
 
@@ -1047,7 +1291,8 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
         raise AssertionError(f"{tag}: pallas vs naive rel err {err} (tol "
                              f"{limit}, {'by layer' if by_layer else 'logit rows'})")
     faults = planted_faults(faults, model, params, batch, measure, limit)
-    fwd = dict(n_params=n_params, init_s=t_init, loss_pallas=loss_p,
+    fwd = dict(layers=cfg.n_layers, n_params=n_params, init_s=t_init,
+               loss_pallas=loss_p,
                loss_naive=loss_n, rel_diff=abs(loss_p - loss_n) / loss_n,
                logit_rel_err=logit_err, planted_faults=faults,
                forward_s=t_fwd, forward_tokens_per_s=B * S / t_fwd,
@@ -1088,6 +1333,9 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, kernel: str,
 # closed-loop memory and trace workloads (phases 12-14)
 
 FIG7_SMOKE = ("gemma-7b-oneshot", "compiled")
+# lanes the smoke leaves to ``benchmarks_torch/fig7_traces.py``: the
+# one-shot's substrate lane holds the batch in lockstep to 11 008 cycles
+FIG7_SMOKE_SKIP = {("gemma-7b-oneshot", "SUBSTRATE")}
 MEM_FIELDS = ("amat_cycles", "amat_reads", "mem_reads", "mem_writes",
               "mem_row_hit_rate", "mem_queue_cycles", "mem_service_cycles",
               "mem_bw_gbps", "outst_peak")
@@ -1271,11 +1519,13 @@ def phase_memcl(dev, kmods, smi) -> dict:
     return rec
 
 
-def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE) -> dict:
-    """fig7's traces ``names`` x three fabrics at paper size against the
-    JAX fixture, every trace complete, the cycle-vs-analytic link energy
-    within 2x; a planted phase fault rides as an extra lane, and a planted
-    multicast energy fault reruns the one-shot wireless point."""
+def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE,
+               skip=FIG7_SMOKE_SKIP) -> dict:
+    """fig7's traces ``names`` x three fabrics at paper size (but the
+    (trace, fabric) lanes in ``skip``) against the JAX fixture, every
+    trace complete, the cycle-vs-analytic link energy within 2x; a
+    planted phase fault rides as an extra lane, and a planted multicast
+    energy fault reruns the one-shot wireless point."""
     import torch
     from repro_torch.core import simulator, traffic
     from repro_torch.core.constants import Fabric, SimParams
@@ -1296,7 +1546,7 @@ def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE) -> dict:
                                  f"{want['describe']}")
     ref = {(p["trace"], p["fabric"]): p for p in fx["points"]}
     meta = [(name, tr, fab) for name, tr in traces
-            for fab in figures.FIG7_FABRICS]
+            for fab in figures.FIG7_FABRICS if (name, fab) not in skip]
     pts = [figures.fig7_point(n, tr, fab, sim) for n, tr, fab in meta]
     # fault 1: the one-shot wireless point with its first phase closing
     # one ejection early (phase_need short by one)
@@ -1515,6 +1765,36 @@ def phase_fig9(dev, kmods, smi, emit=None) -> dict:
     return rec
 
 
+def phase_hybrid_moe(dev, kmods, smi) -> dict:
+    """Phases 16-19: hymba-1.5b and mixtral-8x22b, each at 2 layers
+    against its fixture and then at full size (mixtral at 8 layers).
+    Returns each full forward's launch counts."""
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    hymba = FLASH_TC + ("ssd_scan",)     # the CUDA-core SSD route (P 50)
+    paths = {}
+    phase_reference(dev, kmods, "hymba-2l", "hymba1p5b_2l_reference.json",
+                    per_layer(2, *hymba),
+                    lambda params: hybrid_faults(tf, params))
+    full = phase_full(
+        dev, kmods, smi, "hymba", "hymba-1.5b", per_layer(32, *hymba),
+        {"y_diag zeroed": ssd_faults(ssd_scan)["y_diag zeroed"],
+         "keys 128 back dropped": flash_faults(ops)["keys 128 back dropped"]},
+        POSITIONS_MAMBA, by_layer=True)
+    paths["hymba-1.5b forward, 32 layers"] = full["forward"]["launches"]
+    phase_reference(dev, kmods, "mixtral-2l",
+                    "mixtral8x22b_2l_reference.json",
+                    per_layer(2, *FLASH_TC), lambda params: moe_faults(moe))
+    full = phase_full(dev, kmods, smi, "mixtral", "mixtral-8x22b",
+                      per_layer(MIXTRAL_LAYERS, *FLASH_TC), flash_faults(ops),
+                      POSITIONS_FULL, by_layer=True, layers=MIXTRAL_LAYERS)
+    paths[f"mixtral-8x22b forward, {MIXTRAL_LAYERS} layers"] = \
+        full["forward"]["launches"]
+    return paths
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1600,9 +1880,9 @@ def main() -> int:
     flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
     ssd_tc, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
     phase_reference(dev, kmods, "granite-2l", "granite8b_2l_reference.json",
-                    "flash_attention_tc", flash_faults(ops))
+                    per_layer(2, *FLASH_TC), lambda params: flash_faults(ops))
     full = phase_full(dev, kmods, smi, "granite", "granite-8b",
-                      "flash_attention_tc", flash_faults(ops),
+                      per_layer(36, *FLASH_TC), flash_faults(ops),
                       POSITIONS_FULL)
     # the main path's launches: the 36-layer forward of phase 9
     path = full["forward"]["launches"]
@@ -1611,7 +1891,7 @@ def main() -> int:
                     path="granite-8b forward, 36 layers (phase 9)")
 
     phase_reference(dev, kmods, "mamba2-2l", "mamba2_2l_reference.json",
-                    "ssd_scan_tc", ssd_faults(ssd_scan))
+                    per_layer(2, *SSD_TC), lambda params: ssd_faults(ssd_scan))
 
     def cuda_core_ssd(x, dt, A, B, C, **kw):
         """The CUDA-core SSD kernel through its own entry point."""
@@ -1623,7 +1903,8 @@ def main() -> int:
         return outs
 
     full = phase_full(dev, kmods, smi, "mamba2", "mamba2-1.3b",
-                      "ssd_scan_tc", ssd_faults(ssd_scan), POSITIONS_MAMBA,
+                      per_layer(48, *SSD_TC), ssd_faults(ssd_scan),
+                      POSITIONS_MAMBA,
                       forced=("cuda_core_ssd", ssd_scan, "ssd_intra_chunk",
                               cuda_core_ssd), by_layer=True)
     # the main path's launches: the 48-layer forward of phase 11
@@ -1639,6 +1920,14 @@ def main() -> int:
     phase_fig7(dev, kmods, smi)
     # the lossy and living PHY: fig9 at paper size
     phase_fig9(dev, kmods, smi)
+
+    # the hybrid and MoE families (phases 16-19)
+    paths = phase_hybrid_moe(dev, kmods, smi)
+    flash_tc["launches_by_path"] = {
+        "granite-8b forward, 36 layers": flash_tc["launches"],
+        **{k: v["flash_attention_tc"] for k, v in paths.items()}}
+    ssd_cc.update(launches=paths["hymba-1.5b forward, 32 layers"]["ssd_scan"],
+                  path="hymba-1.5b forward, 32 layers (phase 17)")
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc,

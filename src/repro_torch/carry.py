@@ -91,7 +91,35 @@ def round_bf16(a: np.ndarray) -> np.ndarray:
     return b.view(np.float32)
 
 
-def numpy_params(cfg, seed: int) -> dict:
+BLOCK = 1 << 24           # values per independently seeded block
+BLOCKED = 1 << 28         # leaves larger than this are drawn in blocks
+
+
+def _draw_blocked(seed: int, leaf: int, shape, std: float,
+                  rounded: bool) -> np.ndarray:
+    """N(0, 1) * std (rounded to bf16 values, as f32, if ``rounded``),
+    block ``i`` of ``BLOCK`` values drawn from ``default_rng([seed, leaf,
+    i])``, the blocks on threads (numpy's generators release the GIL
+    while they fill)."""
+    from concurrent.futures import ThreadPoolExecutor
+    out = np.empty(shape, np.float32)
+    flat = out.reshape(-1)
+
+    def fill(i: int) -> None:
+        part = flat[i * BLOCK:(i + 1) * BLOCK]
+        np.random.default_rng([seed, leaf, i]).standard_normal(
+            dtype=np.float32, out=part)
+        part *= np.float32(std)
+        if rounded:
+            round_bf16(part)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(fill, range(-(-flat.size // BLOCK))))
+    return out
+
+
+def numpy_params(cfg, seed: int, *, ones_jitter: float = 0.0,
+                 leaf_fn=None, rounded: bool = True) -> dict:
     """A parameter tree for ``cfg`` from ``np.random.default_rng(seed)``
     with the distributions of the reference's ``init_params``: norm
     weights 1, biases 0, matrices N(0, 1) * fan_in^-0.5 in f32, rounded to
@@ -99,18 +127,45 @@ def numpy_params(cfg, seed: int) -> dict:
     ``d_skip`` 1.  Leaves are f32 arrays.  Those the reference keeps in f32
     (``tf.is_f32_leaf``) are not rounded; the others hold bf16 values, so
     either package casts them to bf16 exactly.  The leaves are drawn in
-    JAX's flattening order."""
+    JAX's flattening order; a matrix of more than ``BLOCKED`` values (an
+    expert stack at full width) is drawn in blocks from seeds of its own
+    (``_draw_blocked``), so that it takes seconds, not minutes.
+
+    ``ones_jitter``: the leaves the reference fills with ones (norm
+    weights, the SSM's ``norm_w`` and ``d_skip``) are drawn as
+    1 + ones_jitter * N(0, 1) instead (bf16 values unless f32 leaves), so
+    that two norms of one layer differ and a check can tell them apart.
+    ``leaf_fn(name, array)``: applied to each leaf as soon as it is drawn
+    (a cast, a copy to a device), so that a large tree is never held whole
+    in f32.  ``rounded=False`` leaves the bf16 leaves unrounded, for a
+    ``leaf_fn`` that casts them to bf16 itself (round to nearest even, the
+    same values; ``leaf_to_device`` does)."""
     rng = np.random.default_rng(seed)
     out = []
-    for name, shape in tf.leaves(tf.param_shapes(cfg)):
+    for i, (name, shape) in enumerate(tf.leaves(tf.param_shapes(cfg))):
         kind, val = tf.init_rule(name, shape)
-        if kind == "fill":
-            out.append((name, np.full(shape, val, np.float32)))
+        if kind == "fill" and val == 1.0 and ones_jitter:
+            a = 1.0 + np.float32(ones_jitter) * rng.standard_normal(
+                shape, dtype=np.float32)
+            a = a if tf.is_f32_leaf(name) or not rounded else round_bf16(a)
+        elif kind == "fill":
+            a = np.full(shape, val, np.float32)
         elif kind == "log_uniform":
-            out.append((name, np.log(rng.uniform(*val, shape))
-                        .astype(np.float32)))
+            a = np.log(rng.uniform(*val, shape)).astype(np.float32)
+        elif int(np.prod(shape)) > BLOCKED:
+            a = _draw_blocked(seed, i, shape, val, rounded)
         else:
             a = rng.standard_normal(shape, dtype=np.float32)
             a *= np.float32(val)
-            out.append((name, round_bf16(a)))
+            a = round_bf16(a) if rounded else a
+        out.append((name, a if leaf_fn is None else leaf_fn(name, a)))
     return tf.unflatten(out)
+
+
+def leaf_to_device(name: str, a: np.ndarray, device=None) -> torch.Tensor:
+    """One ``numpy_params`` leaf as the port's parameter on ``device`` (a
+    ``leaf_fn``): f32 for the leaves the reference keeps in f32, else cast
+    to bf16 (round to nearest even) on the host, then moved."""
+    dev = _device.resolve(device)
+    t = torch.from_numpy(a)
+    return (t if tf.is_f32_leaf(name) else t.to(torch.bfloat16)).to(dev)

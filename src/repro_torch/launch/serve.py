@@ -2,12 +2,11 @@
 ``repro/launch/serve.py``).
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --requests 8 --max-new 16
 
-The default ``--arch`` is granite-8b, not the reference's hymba-1.5b:
-the port has the dense and pure-SSM families (``--arch mamba2-1.3b``) so
-far; the hybrid family waits for its layer (ROADMAP A9).
+``--arch`` takes any decoder-only config (dense, moe, ssm, hybrid); the
+default is the reference's, hymba-1.5b.
 """
 from __future__ import annotations
 
@@ -56,7 +55,7 @@ def serve_requests(model: Model, params, *, requests: int, slots: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,10 +1,12 @@
 """Model assembly for the decoder-only LMs, in plain torch.
 
-Port of ``repro/models/transformer.py`` for the ``dense`` and ``ssm``
-(pure Mamba2) families: the parameters keep the reference's tree (a
-nested dict with the layers stacked on a leading axis), and a Python loop
-over the layers takes the place of ``lax.scan``.  The other families
-raise ``NotImplementedError`` naming their ROADMAP item.  No
+Port of ``repro/models/transformer.py`` for the decoder-only families:
+``dense``, ``moe`` (a top-k expert FFN, ``models/moe.py``), ``ssm`` (pure
+Mamba2) and ``hybrid`` (attention and SSM heads in parallel, averaged).
+The parameters keep the reference's tree (a nested dict with the layers
+stacked on a leading axis), and a Python loop over the layers takes the
+place of ``lax.scan``.  The ``encdec`` and ``vlm`` families raise
+``NotImplementedError`` naming their ROADMAP item.  No
 rematerialisation: the forward needs none, and training is a later slice.
 """
 from __future__ import annotations
@@ -14,14 +16,13 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (chunked_xent, glu_mlp, mlp_shapes,
                                        norm, norm_shapes)
 
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "moe": "ROADMAP A9: models/moe.py",
-    "hybrid": "ROADMAP A9: the hybrid layer",
     "encdec": "ROADMAP A9: the encoder-decoder family",
     "vlm": "ROADMAP A9: the VLM family",
 }
@@ -54,8 +55,11 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.has_ssm:
         layer["ssm"] = ssm_mod.ssm_shapes(cfg)
         layer["ln_ssm"] = norm_shapes(d, cfg.norm)      # unused by pure SSM
-    if cfg.family != "ssm":                             # mamba2: no FFN
+    if cfg.family == "moe":
+        layer["ffn"] = moe_mod.moe_shapes(cfg)
+    elif cfg.family != "ssm":                           # mamba2: no FFN
         layer["ffn"] = mlp_shapes(d, cfg.d_ff, cfg.mlp_gated)
+    if "ffn" in layer:
         layer["ln2"] = norm_shapes(d, cfg.norm)
     shapes = {"embed": (cfg.vocab_padded, d),
               "ln_f": norm_shapes(d, cfg.norm),
@@ -153,18 +157,42 @@ def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 # forward passes
 # --------------------------------------------------------------------------
 
-def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+def mix_heads(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The hybrid layer's parallel heads: the mean of the attention and
+    SSM outputs (reference ``_layer_body``)."""
+    return 0.5 * (a + s)
+
+
+def mixer(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+    """The layer's sequence mixer on the residual stream x: attention on
+    ``norm(x, ln1)``, the SSM on it (pure SSM), or both in parallel (hybrid:
+    the SSM heads on ``norm(x, ln_ssm)``), averaged by ``mix_heads``."""
     h = norm(x, lp["ln1"], cfg.norm)
-    if cfg.has_attention:
-        a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
-                                  causal=causal, impl=impl)
-        x = x + a
-    else:                                             # pure SSM
+    if not cfg.has_attention:                         # pure SSM
         s, _ = ssm_mod.ssm_forward(h, lp["ssm"], cfg, impl=impl)
-        x = x + s
+        return s
+    a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
+                              causal=causal, impl=impl)
+    if cfg.has_ssm:                                   # hybrid
+        s, _ = ssm_mod.ssm_forward(norm(x, lp["ln_ssm"], cfg.norm),
+                                   lp["ssm"], cfg, impl=impl)
+        a = mix_heads(a, s)
+    return a
+
+
+def ffn(cfg: ModelConfig, x, lp) -> torch.Tensor:
+    """The layer's feed-forward on ``norm(x, ln2)``: the expert FFN (moe)
+    or the (gated) MLP."""
+    h = norm(x, lp["ln2"], cfg.norm)
+    if cfg.family == "moe":
+        return moe_mod.moe_ff(h, lp["ffn"], cfg)
+    return glu_mlp(h, lp["ffn"], cfg.act)
+
+
+def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+    x = x + mixer(cfg, x, lp, positions=positions, causal=causal, impl=impl)
     if "ffn" in lp:
-        h = norm(x, lp["ln2"], cfg.norm)
-        x = x + glu_mlp(h, lp["ffn"], cfg.act)
+        x = x + ffn(cfg, x, lp)
     return x
 
 
@@ -268,6 +296,12 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
                 h, lp["attn"], cfg, positions=positions,
                 kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
                 cache_slot=slot, valid_len=valid_len)
+            if cfg.has_ssm:                           # hybrid
+                s, new_s = ssm_mod.ssm_forward(
+                    norm(x, lp["ln_ssm"], cfg.norm), lp["ssm"], cfg,
+                    state={"ssm": cache["ssm"][i]})
+                cache["ssm"][i] = new_s["ssm"]
+                a = mix_heads(a, s)
             x = x + a
         else:
             s, new_s = ssm_mod.ssm_forward(h, lp["ssm"], cfg,
@@ -275,8 +309,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
             cache["ssm"][i] = new_s["ssm"]
             x = x + s
         if "ffn" in lp:
-            h = norm(x, lp["ln2"], cfg.norm)
-            x = x + glu_mlp(h, lp["ffn"], cfg.act)
+            x = x + ffn(cfg, x, lp)
     x = norm(x, params["ln_f"], cfg.norm)
     unemb = params.get("unembed", emb)
     logits = (x @ unemb.T)[:, 0, :cfg.vocab]

@@ -25,6 +25,10 @@ without one).  Torch only, so they also run where JAX is not installed:
   own launch count by one; f32
   inputs on the CUDA-core kernel; and a 2-layer mamba2 (d 512, P 64, N
   128, chunk 128) with ``impl="pallas"`` against ``impl="naive"``;
+- hymba-1.5b's width at 2 layers with ``impl="pallas"`` (the windowed
+  tensor-core flash kernel and the CUDA-core SSD kernel, P 50) against
+  ``impl="naive"``; the MoE layer's dispatch on the card equal to the
+  CPU's (planted ties, drops);
 - the wrappers refuse what their kernels do not take.
 """
 import numpy as np
@@ -464,3 +468,61 @@ def test_mamba_pallas_matches_naive_on_card(cuda):
         for impl in ("pallas", "naive")}
     np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
                                atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+
+def test_hymba_pallas_matches_naive_on_card(cuda):
+    """hymba-1.5b's width at 2 layers: every layer launches the
+    tensor-core flash kernel once (hd 64, the window) and the CUDA-core
+    SSD kernel once (P 50), never the tensor-core SSD kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cfg = get_config("hymba-1.5b").scaled(n_layers=2, vocab=4096)
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    before = (flash_attention.tc_launches, ssd_scan.launches,
+              ssd_scan.tc_launches)
+    got = Model(cfg, impl="pallas").loss(params, batch)
+    torch.cuda.synchronize()
+    assert (flash_attention.tc_launches, ssd_scan.launches,
+            ssd_scan.tc_launches) == (before[0] + 2, before[1] + 2,
+                                      before[2])
+    want = Model(cfg, impl="naive").loss(params, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
+    lg = {impl: tf.lm_logits(cfg, params, tf.lm_hidden(
+        cfg, params, toks, impl=impl)).float()[..., :cfg.vocab].cpu().numpy()
+        for impl in ("pallas", "naive")}
+    np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
+                               atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+
+def test_moe_dispatch_on_card_equals_cpu(cuda):
+    """The MoE layer on the card: the same top-k experts and dropped
+    assignments as on the CPU for the same bf16 router probabilities
+    (planted ties included), and the layer's output within 2^-7 of the
+    CPU's largest entry (cuBLAS sums in another order)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x22b").smoke()
+    rng = np.random.default_rng(0)
+    p = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                             * s[-2] ** -0.5).to(torch.bfloat16)
+         for k, s in moe.moe_shapes(cfg).items()}
+    p["router"][:, 2] = p["router"][:, 1]              # tied experts
+    x = torch.from_numpy(rng.standard_normal((2, 256, cfg.d_model))
+                         .astype(np.float32) + 2.0).to(torch.bfloat16)
+    probs = torch.softmax(
+        (x.reshape(-1, cfg.d_model) @ p["router"]).float(), -1)
+    out = {}
+    for dev in ("cpu", cuda):
+        _, experts = moe.top_k(probs.to(dev), cfg.top_k)
+        plan = moe.dispatch_plan(experts, cfg.n_experts,
+                                 moe.capacity(cfg, probs.shape[0]))
+        y = moe.moe_ff(x.to(dev), {k: v.to(dev) for k, v in p.items()}, cfg)
+        out[str(dev)] = (experts.cpu(), moe.dropped(plan).cpu(),
+                         y.float().cpu())
+    (e0, d0, y0), (e1, d1, y1) = out.values()
+    assert torch.equal(e0, e1) and torch.equal(d0, d1) and len(d0) > 0
+    assert float((y0 - y1).abs().max()) <= 2.0 ** -7 * float(y0.abs().max())

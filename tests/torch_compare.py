@@ -6,8 +6,12 @@
   integers (and lists of them) exactly, floats within rel 1e-6 (the energy
   terms are float32 sums taken in another order than XLA's), NaN = NaN;
 - ``assert_tables_equal``: two host-side dataclasses (traffic tables,
-  traces, device maps) are equal array for array, dtypes included.
+  traces, device maps) are equal array for array, dtypes included;
+- ``jax_moe_probe`` / ``port_moe_probe``: each MoE layer call's top-k
+  experts and the (token, expert) assignments it dropped for capacity, in
+  the reference and in the port.
 """
+import contextlib
 import dataclasses
 import enum
 import math
@@ -126,3 +130,94 @@ def port_continue(pss, sts, t0: int, t1: int) -> list:
     out = np_tree(tsim.run_cycles(ss, st, t0, t1, ps0.B, ps0.mem_on,
                                   ps0.phy_on, ps0.drift_on, ps0.reselect))
     return [{k: v[g] for k, v in out.items()} for g in range(len(pss))]
+
+
+# ---- MoE dispatch: which assignments each layer call keeps and drops
+
+
+def _queues(experts: np.ndarray, n_experts: int) -> list:
+    """Each expert's queue: the tokens that chose it, in token order (the
+    order of a stable sort of the flat assignments by expert)."""
+    return [np.nonzero((experts == e).any(-1))[0] for e in range(n_experts)]
+
+
+@contextlib.contextmanager
+def jax_moe_probe():
+    """Record every call of the reference's ``moe_ff`` made inside the
+    block (run eagerly or under ``jax.disable_jit()``): the router's
+    probabilities [T, E] (f32), its top-k experts [T, k] and the (token,
+    expert) assignments it dropped, sorted.  The
+    calls are observed, not re-implemented: ``jax.lax.top_k`` and the
+    module's ``constrain`` are wrapped, the token view and the dispatch
+    buffer are read from ``constrain``'s arguments, and every expert's
+    buffer rows are checked to hold its first ``cap`` tokens (the rest of
+    the buffer zero) before its later tokens are counted as dropped."""
+    import types
+
+    import jax
+
+    from repro.models import moe as jmoe
+
+    calls, seen = [], []
+    real_constrain, real_jax = jmoe.constrain, jmoe.jax
+
+    def top_k(probs, k):
+        vals, idx = jax.lax.top_k(probs, k)
+        calls[-1]["probs"] = np.asarray(probs).reshape(-1, probs.shape[-1])
+        calls[-1]["experts"] = np.asarray(idx).reshape(-1, k)
+        return vals, idx
+
+    def constrain(x, spec):
+        n = len(seen)
+        seen.append(None)
+        if n % 4 == 0:                        # the token view [G, Tg, d]
+            calls.append({"xf": np.asarray(x)[0]})
+        elif n % 4 == 1:                      # the buffer [G, E, cap, d]
+            rec = calls[-1]
+            buf = np.asarray(x)[0]
+            E, cap = buf.shape[:2]
+            dropped = []
+            for e, q in enumerate(_queues(rec["experts"], E)):
+                kept = min(cap, len(q))
+                want = np.zeros_like(buf[e])
+                want[:kept] = rec["xf"][q[:kept]]
+                assert np.array_equal(buf[e], want), \
+                    f"expert {e}: the buffer is not its first {cap} tokens"
+                dropped += [(int(t), e) for t in q[cap:]]
+            rec["dropped"] = sorted(dropped)
+            rec["cap"] = int(cap)
+            del rec["xf"]
+        return real_constrain(x, spec)
+
+    proxy = types.SimpleNamespace(
+        lax=types.SimpleNamespace(top_k=top_k), nn=jax.nn, vmap=jax.vmap,
+        ShapeDtypeStruct=jax.ShapeDtypeStruct)
+    jmoe.constrain, jmoe.jax = constrain, proxy
+    try:
+        yield calls
+    finally:
+        jmoe.constrain, jmoe.jax = real_constrain, real_jax
+
+
+@contextlib.contextmanager
+def port_moe_probe():
+    """The port's counterpart of ``jax_moe_probe``: ``moe.dispatch_plan``
+    wrapped, each call's experts [T, k] and ``moe.dropped`` of its plan."""
+    from repro_torch.models import moe
+
+    calls = []
+    real = moe.dispatch_plan
+
+    def plan(experts, n_experts, cap):
+        out = real(experts, n_experts, cap)
+        calls.append({"experts": experts.cpu().numpy(),
+                      "dropped": [tuple(r) for r in
+                                  moe.dropped(out).cpu().tolist()],
+                      "cap": cap})
+        return out
+
+    moe.dispatch_plan = plan
+    try:
+        yield calls
+    finally:
+        moe.dispatch_plan = real

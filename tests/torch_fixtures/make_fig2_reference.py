@@ -1,9 +1,10 @@
 """Write ``fig2_reference.json``: the JAX package's fig2 grid.
 
 Substrate, interposer and wireless 4C4M at load 1.0, p_mem 0.2 (paper §IV,
-``benchmarks/fig2_uniform.py``), 4 000 cycles with 1 000 of warm-up — the
+``benchmarks/fig2_uniform.py``), 2 000 cycles with 500 of warm-up — the
 paper's 10 000 cut so that ``chip_smoke.py`` stays within its time limit
-with fig9 — in one ``run_sweep_batched`` call on the CPU.  ``chip_smoke.py`` holds the
+with fig9 and the hybrid and MoE phases — in one ``run_sweep_batched``
+call on the CPU.  ``chip_smoke.py`` holds the
 port's run of the same grid against this file.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fixtures/make_fig2_reference.py
@@ -15,7 +16,7 @@ from repro.core.constants import Fabric, SimParams
 from repro.core.sweep import SweepPoint, run_sweep_batched
 
 OUT = pathlib.Path(__file__).parent / "fig2_reference.json"
-SIM = SimParams(cycles=4_000, warmup=1_000, seed=0)
+SIM = SimParams(cycles=2_000, warmup=500, seed=0)
 FABRICS = (Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS)
 INT_FIELDS = ("pkts_delivered", "flits_delivered", "flits_injected",
               "cycles_run", "drain_cycle")

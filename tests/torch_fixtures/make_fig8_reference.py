@@ -3,10 +3,10 @@
 The grid of ``benchmarks/fig8_memory.py`` without ``FIG8_SMOKE``: 4C4M on
 the three fabrics, closed-loop memory traffic at loads 0.05, 0.15, 0.3,
 0.6 and 1.0 with ``max_outstanding`` windows 4 and 16, plus canneal
-closed-loop on the wireless and interposer fabrics; 32 points, 3 000
-cycles with 1 000 of warm-up (fig8's 6 000 cut so that ``chip_smoke.py``
-stays within its time limit with fig9), in one ``run_sweep_batched``
-call on the CPU.  Each point is stored with its case and every ``Metrics`` field;
+closed-loop on the wireless and interposer fabrics; 32 points, 2 000
+cycles with 500 of warm-up (fig8's 6 000 cut so that ``chip_smoke.py``
+stays within its time limit with fig9 and the hybrid and MoE phases), in
+one ``run_sweep_batched`` call on the CPU.  Each point is stored with its case and every ``Metrics`` field;
 ``chip_smoke.py`` rebuilds the points from the cases and holds the port's
 run against the metrics (integers exact, floats rel 1e-6).
 
@@ -21,7 +21,7 @@ from repro.core.sweep import SweepPoint, run_sweep_batched
 from repro.memory import DramTimingParams, MemSweepSpec
 
 OUT = pathlib.Path(__file__).parent / "fig8_reference.json"
-SIM = SimParams(cycles=3_000, warmup=1_000, seed=0)
+SIM = SimParams(cycles=2_000, warmup=500, seed=0)
 LOADS = (0.05, 0.15, 0.3, 0.6, 1.0)
 WINDOWS = (4, 16)
 FABRICS = (Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS)
