@@ -8,8 +8,10 @@ loudly:
 1. environment: torch, the card, its power limit (nvidia-smi);
 2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source,
    with ptxas's registers, spills and warnings of each kernel and the
-   tensor-core kernels' shared memory (it fails on a spill in either, or
-   on ``setmaxnreg`` ignored in the flash kernel, C7508);
+   tensor-core kernels' shared memory (it fails on a spill in either, on
+   any of the SSD kernel's eight instances, P boxes 1-4 with x by TMA or
+   by the threads, missing from the report, or on ``setmaxnreg`` ignored
+   in the flash kernel, C7508);
 3. RMSNorm: drives ``ops.rmsnorm`` (forward and backward) with the launch
    counts set to 0 and asserts the kernel ran; then holds the kernel
    against its plain version at each shape (f32 tol 1e-5, bf16 tol 2e-2)
@@ -42,23 +44,25 @@ loudly:
    the CUDA-core kernel, its plain version and SDPA on granite-8b's f32
    inputs;
 7. SSD, two kernels chosen by ``ssd_scan.route``: the tensor-core kernel
-   (bf16 x, B, C, Q 64-256) and the CUDA-core kernel (the rest).  The
+   (bf16 x, B, C, Q 64-256, even P; x by TMA where P % 16 == 0, else by
+   the threads) and the CUDA-core kernel (the rest).  The
    CUDA-core kernel against ``ref.ssd_intra_chunk_ref`` at the cases of
    ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at mamba2-1.3b's
    f32 cell, where ``ops.ssd`` whole (one launch) is held against its
    plain composition on the CPU (2e-4); times of the kernel, its plain
    version, ``ops.ssd`` and ``ops.ssd`` composed with the plain version.
    The tensor-core kernel at bf16 cases of (Q, P, N) with ragged chunks
-   and heads and B, C by group (``heads`` 1, 8, 64), and at the model's
-   shape (B 2 x 64 heads, 32 chunks of 128, P 64, N 128), each held to
-   1e-4 of each output's largest entry and moving its route's count by
-   one; the model's shape also with the scores rounded to bf16 as the
-   model path asks (2^-7: a flipped rounding of one score); times at the
-   model's shape, scores rounded, of the tensor-core kernel, the
-   CUDA-core kernel through its own entry point and the plain version;
-   and the CUDA-core kernel at its own path's cell, hymba-1.5b's forward
-   (B 2 x 64 heads of P 50, N 16, bf16, scores rounded; 2^-7), timed
-   beside its plain version;
+   and heads and B, C by group (``heads`` 1, 8, 64), P not a multiple of
+   16 (24, 50, 100, 130, 200, 250: x by the threads, one to four boxes, Q
+   64 to 256), and at mamba2-1.3b's shape (B 2 x 64 heads, 32 chunks of
+   128, P 64, N 128), each held to 1e-4 of each output's largest entry
+   and, with the scores rounded to bf16 as the model path asks, to 2^-7
+   (a flipped rounding of one score), each launch moving its route's
+   count by one; times at the model's shape, scores rounded, of
+   the tensor-core kernel, the CUDA-core kernel through its own entry
+   point and the plain version, with the bound and the share of it; the
+   same at hymba-1.5b's forward cell (B 2 x 64 heads of P 50, N 16: x by
+   the threads), held at 1e-4 with f32 scores and 2^-7 with rounded ones;
 8. granite-8b at full width and 2 layers against
    ``tests/torch_fixtures/granite8b_2l_reference.json`` (written by the JAX
    package with the same ``carry.numpy_params`` weights): ``Model.loss``
@@ -87,7 +91,8 @@ loudly:
     their whole scale for a one-ulp change of one input, which the phase
     measures and prints, so whole logit rows are reported, not held);
     the same forward timed with the CUDA-core SSD kernel forced in
-    through its own entry point; then ``launch/serve.py``'s engine
+    through its own entry point (the two routes in turns: kernel,
+    forced, forced, kernel); then ``launch/serve.py``'s engine
     serving 8 requests on 4 slots (no kernel launch);
 12. fig8 at paper width: the grid of ``benchmarks/fig8_memory.py``
     (closed-loop memory on 4C4M's three fabrics at loads 0.05-1.0 with
@@ -134,16 +139,18 @@ loudly:
     op by op; ``carry.numpy_params`` weights with the norm weights drawn
     apart, ``ones_jitter``): ``Model.loss`` with ``impl="pallas"`` on a
     2560-token batch past the 2048-token window (2 launches of the
-    tensor-core flash kernel, 2 of the CUDA-core SSD kernel: hymba's SSM
-    heads have P 50), the top-5 logits at 10 positions across chunk edges
+    tensor-core flash kernel, 2 of the tensor-core SSD kernel, x by the
+    threads: hymba's SSM heads have P 50; none of the CUDA-core SSD
+    kernel), the top-5 logits at 10 positions across chunk edges
     and past the window, and the greedy engine; faults: the heads summed
     rather than averaged, the SSM heads normed with ``ln1``;
 17. hymba-1.5b at full size (32 layers): the forward at B 2 x S 4096
-    (32 tensor-core flash launches with the window, 32 CUDA-core SSD
-    launches, no tensor-core SSD launch) against ``impl="naive"`` layer by
+    (32 tensor-core flash launches with the window, 32 tensor-core SSD
+    launches, no CUDA-core SSD launch) against ``impl="naive"`` layer by
     layer, as phase 11, the logit rows and the one-ulp sensitivity
-    reported; serving as phase 9; faults: ``y_diag`` zeroed, keys 128 back
-    dropped;
+    reported; the same forward timed with the CUDA-core SSD kernel forced
+    in through its own entry point, as phase 11; serving as phase 9;
+    faults: ``y_diag`` zeroed, keys 128 back dropped;
 18. mixtral-8x22b at full width and 2 layers against
     ``tests/torch_fixtures/mixtral8x22b_2l_reference.json``: the loss, the
     top-5 logits, the port's dispatch on the reference's router
@@ -378,9 +385,16 @@ SSD_TC_CASES = [
     (1, 64, 2, 128, 128, 256),
     (3, 8, 1, 256, 64, 128),
     (1, 64, 3, 128, 64, 128),
+    # P not a multiple of 16: x loaded by the threads, not TMA
+    (2, 64, 2, 128, 50, 16),
+    (1, 8, 3, 64, 24, 16),
+    (3, 2, 2, 128, 100, 32),
+    (1, 2, 1, 256, 130, 16),
+    (1, 4, 2, 256, 250, 32),
+    (1, 2, 1, 128, 200, 16),
 ]
 SSD_TC_PATH = (2, 64, 32, 128, 64, 128)    # mamba2-1.3b forward, B 2 x 4096
-SSD_CC_PATH = (2, 64, 32, 128, 50, 16)     # hymba-1.5b forward, B 2 x 4096
+SSD_HYMBA_PATH = (2, 64, 32, 128, 50, 16)  # hymba-1.5b forward, B 2 x 4096
 SSD_TC_TOL = 1e-4                          # of each output's largest entry
 # With the scores rounded to bf16 (the model path), kernel and plain
 # version each round their own f32 sums: where those differ in the last
@@ -590,6 +604,21 @@ def moe_faults(moe) -> dict:
                              lambda cfg, T: real_cap(cfg, T) + 1)}
 
 
+def cuda_core_ssd(ssd_scan) -> tuple:
+    """``phase_full``'s ``forced``: the CUDA-core SSD kernel through its
+    own entry point in place of ``ssd_scan.ssd_intra_chunk``."""
+    import torch
+
+    def fn(x, dt, A, B, C, **kw):
+        BH, c, Q, P = x.shape
+        outs = tuple(torch.empty(s, device=x.device) for s in (
+            (BH, c, Q, P), (BH, c, P, B.shape[-1]), (BH, c)))
+        ssd_scan.launch_route("cuda_core", x, dt, A, B, C, *outs, **kw)
+        return outs
+
+    return ("cuda_core_ssd", ssd_scan, "ssd_intra_chunk", fn)
+
+
 def hybrid_faults(tf, params) -> dict:
     """Faults in the hybrid layer: the heads summed rather than averaged,
     and the SSM heads normed with ``ln1`` rather than ``ln_ssm`` (their
@@ -635,34 +664,48 @@ def zero(kmods) -> None:
 
 def build_report(_build, logs: dict) -> None:
     """ptxas's lines for each kernel (registers, spills, warnings) and the
-    tensor-core flash kernel's shared memory; fails on a spill in that
-    kernel or on ``setmaxnreg`` ignored (C7508)."""
+    tensor-core kernels' shared memory; fails on a spill in either
+    tensor-core kernel (every instance of the SSD one: P boxes 1-4, x by
+    TMA or by the threads, each of which must be reported) or on
+    ``setmaxnreg`` ignored (C7508)."""
     import ctypes
     import re
     for k, log in logs.items():
-        entry = ""
+        entry, seen = "", set()
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w*?_cu_[0-9a-f]+\d+",
                                "", m.group(1)).split("EE")[0][:32]
+                inst = re.search(r"ssd_intra_tcILi(\d)ELb([01])", entry)
+                if inst:
+                    how = {"1": "TMA", "0": "threads"}[inst.group(2)]
+                    entry = f"ssd_intra_tc<PB {inst.group(1)}, x by {how}>"
             if any(w in line for w in ("registers", "spill", "error",
                                        "warning", "C7508")):
                 say("build", f"{k} {entry}: {line.strip()}")
+                if "registers" in line:
+                    seen.add(entry)
         if k in ("flash_attention_tc", "ssd_scan_tc") and (
                 "C7508" in log or re.search(r"[1-9]\d* bytes spill", log)):
             raise AssertionError(f"{k}: ptxas spills or ignores "
                                  f"setmaxnreg:\n{log}")
+        want = {f"ssd_intra_tc<PB {pb}, x by {how}>" for pb in range(1, 5)
+                for how in ("TMA", "threads")}
+        if k == "ssd_scan_tc" and log and not want <= seen:
+            raise AssertionError(f"ssd_scan_tc: ptxas reported no registers "
+                                 f"for {sorted(want - seen)}:\n{log}")
     fn = _build.load("flash_attention_tc").flash_attention_tc_smem
     fn.argtypes, fn.restype = [ctypes.c_int64], ctypes.c_int
     say("build", "flash_attention_tc dynamic shared memory (bytes by head "
         f"dim): {json.dumps({hd: fn(hd) for hd in (64, 128, 192, 256)})}")
     from repro_torch.kernels import ssd_scan
-    shapes = sorted({c[3:] for c in SSD_TC_CASES} | {SSD_TC_PATH[3:]})
+    shapes = sorted({c[3:] for c in SSD_TC_CASES}
+                    | {SSD_TC_PATH[3:], SSD_HYMBA_PATH[3:]})
     say("build", "ssd_scan_tc dynamic shared memory (bytes by Q, P, N): "
         + json.dumps({str(q): ssd_scan.smem_bytes("tensor_core", *q)
                       for q in shapes}))
-    q = SSD_CC_PATH[3:]
+    q = SSD_HYMBA_PATH[3:]
     say("build", f"ssd_scan (CUDA cores) dynamic shared memory at hymba's "
         f"(Q, P, N) {q}: {ssd_scan.smem_bytes('cuda_core', *q)} bytes")
 
@@ -825,8 +868,8 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
 
 
 def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
-    """Returns the closing line's entries of the tensor-core kernel and of
-    the CUDA-core kernel."""
+    """Returns the closing line's entries of the tensor-core kernel (x by
+    TMA, and x by the threads) and of the CUDA-core kernel."""
     import torch
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -950,10 +993,16 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
                 != "tensor_core":
             raise AssertionError(f"ssd {tag}: not on the tensor-core route")
         err = check(tag, args, SSD_TC_TOL, scaled=True, heads=heads)
+        err_rounded = check(f"{tag} scores rounded", args,
+                            SSD_TC_ROUNDED_TOL, scaled=True, heads=heads,
+                            round_scores=True)
         say("ssd", json.dumps(dict(case=tag, route="tensor_core", BH=G * heads,
                                    c=c, Q=Q, P=P, N=N, heads=heads,
                                    dtype="bfloat16", max_abs_err=err,
-                                   tol=f"{SSD_TC_TOL} x max|want|")))
+                                   tol=f"{SSD_TC_TOL} x max|want|",
+                                   max_abs_err_scores_rounded=err_rounded,
+                                   tol_scores_rounded=f"{SSD_TC_ROUNDED_TOL}"
+                                                      " x max|want|")))
     # the model's shape, in the Pallas kernel's arithmetic (f32 scores)
     # and in the model path's (scores rounded to bf16, as the reference's)
     G, heads, c, Q, P, N = SSD_TC_PATH
@@ -990,21 +1039,27 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
 
     tc = dict(name="ssd_intra_chunk_tc", route="cuda",
               source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
-              replaces="src/repro/kernels/ssd_scan.py:56",
+              replaces="src/repro/kernels/ssd_scan.py:56", x_load="TMA",
               launches=None, max_abs_err=err, ms=rec["ms"],
               plain_ms=rec["plain_ms"], bound_ms=bound_ms,
               bound_by=bound_by, library_ms=None,
               cuda_core_ms=rec["cuda_core_ms"], shape=[G * heads, c, Q, P, N],
               heads=heads, dtype="bfloat16")
-    # the CUDA-core kernel on its main path: hymba-1.5b's forward cell (B 2
-    # x 64 heads of P 50, N 16, 32 chunks of 128; bf16 x, B and C by group,
-    # the scores rounded to bf16 as the model path asks)
-    G, heads, c, Q, P, N = SSD_CC_PATH
+    # the same kernel with x loaded by the threads, on its main path:
+    # hymba-1.5b's forward cell (B 2 x 64 heads of P 50, N 16, 32 chunks of
+    # 128; bf16 x, B and C by group), in the Pallas kernel's arithmetic
+    # (f32 scores) and the model path's (scores rounded to bf16), timed
+    # beside the CUDA-core kernel through its own entry point and the
+    # plain version
+    G, heads, c, Q, P, N = SSD_HYMBA_PATH
     args = tc_inputs(G, heads, c, Q, P, N)
-    if ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) != "cuda_core":
-        raise AssertionError("ssd: hymba's cell is not on the CUDA-core "
+    if ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) \
+            != "tensor_core":
+        raise AssertionError("ssd: hymba's cell is not on the tensor-core "
                              "route")
     kw = dict(heads=heads, round_scores=True)
+    err_f32 = check("hymba-1.5b forward cell, f32 scores", args, SSD_TC_TOL,
+                    scaled=True, heads=heads)
     err = check("hymba-1.5b forward cell", args, SSD_TC_ROUNDED_TOL,
                 scaled=True, **kw)
     cells = G * heads * c
@@ -1013,27 +1068,47 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + 4 * cells * (Q * P + P * N + 1)
     bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS)
-    hy = dict(case="hymba-1.5b forward cell", route="cuda_core",
-              BH=G * heads, c=c, Q=Q, P=P, N=N, heads=heads,
-              dtype="bfloat16", round_scores=True, max_abs_err=err,
-              tol=f"{SSD_TC_ROUNDED_TOL} x max|want|", bound_ms=bound_ms,
+    outs = [torch.empty((cells // c, c, Q, P), device=dev),
+            torch.empty((cells // c, c, P, N), device=dev),
+            torch.empty((cells // c, c), device=dev)]
+    hy = dict(case="hymba-1.5b forward cell", route="tensor_core",
+              x_load="threads", BH=G * heads, c=c, Q=Q, P=P, N=N,
+              heads=heads, dtype="bfloat16", round_scores=True,
+              max_abs_err=err, max_abs_err_f32_scores=err_f32,
+              tol=f"{SSD_TC_ROUNDED_TOL} (f32 scores {SSD_TC_TOL}) x "
+                  "max|want|", bound_ms=bound_ms,
               bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
               ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*args, **kw)),
-              plain_ms=time_ms(lambda: plain(*args, **kw), iters=5),
-              power=nvidia_smi())
+              cuda_core_ms=time_ms(lambda: ssd_scan.launch_route(
+                  "cuda_core", *args, *outs, **kw), iters=5),
+              plain_ms=time_ms(lambda: plain(*args, **kw), iters=5))
+    hy["ms_again"] = time_ms(lambda: ssd_scan.ssd_intra_chunk(*args, **kw))
+    hy["power"] = nvidia_smi()
     hy["share_of_bound"] = bound_ms / hy["ms"]
+    hy["cuda_core_share_of_bound"] = bound_ms / hy["cuda_core_ms"]
     say("ssd", json.dumps(hy))
+    tc_x = dict(name="ssd_intra_chunk_tc_thread_x", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+                replaces="src/repro/kernels/ssd_scan.py:56",
+                x_load="threads", launches=None, max_abs_err=err,
+                ms=hy["ms"], plain_ms=hy["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                cuda_core_ms=hy["cuda_core_ms"],
+                shape=[G * heads, c, Q, P, N], heads=heads, dtype="bfloat16")
+    # the CUDA-core kernel on its path: ops.ssd at mamba2-1.3b's f32 cell
+    cell = mamba_f32_cell
     cuda_core = dict(
         name="ssd_intra_chunk", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:56",
-        launches=None, max_abs_err=err, ms=hy["ms"],
-        plain_ms=hy["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, shape=[G * heads, c, Q, P, N], heads=heads,
-        dtype="bfloat16", ops_ssd_path=dict(
-            path="ops.ssd, f32 at mamba2-1.3b's shape (1 per call)",
-            launches=path["ssd_scan"], cell=mamba_f32_cell))
-    return tc, cuda_core
+        launches=path["ssd_scan"],
+        path="ops.ssd, f32 at mamba2-1.3b's shape (1 per call; phase 7)",
+        max_abs_err=cell["max_abs_err"], ms=cell["ms"],
+        plain_ms=cell["plain_ms"], bound_ms=cell["bound_ms"],
+        bound_by=cell["bound_by"], library_ms=None,
+        shape=[cell["BH"], cell["c"], cell["Q"], cell["P"], cell["N"]],
+        dtype="float32")
+    return tc, tc_x, cuda_core
 
 
 def phase_reference(dev, kmods, tag: str, fixture: str, expect: dict,
@@ -1195,8 +1270,9 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
     """A model at full size (``layers``: a cut depth, at full width): the
     forward with the kernels (launched as ``expect`` says, nothing else)
     against ``impl="naive"``, and serving.  ``forced``: ``(label, obj,
-    attribute, fn)``, a second timing of the forward with ``fn`` in place
-    of ``obj.attribute`` (another route of the kernel).
+    attribute, fn)``, the forward also timed with ``fn`` in place of
+    ``obj.attribute`` (another route of the kernel), the two routes in
+    turns: kernel, forced, forced, kernel.
 
     The check, and the faults it must reject: whole logit rows at
     ``positions`` within ``FULL_LOGIT_REL``; with ``by_layer`` (a model
@@ -1235,14 +1311,15 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
         path = counts(kmods)
         expect_counts(f"{tag} forward", path, expect)
         peak_fwd = torch.cuda.max_memory_allocated(dev)
-        forced_s = None
         if forced is not None:
             label, obj, attr, fn = forced
+            # the routes in turns: kernel, forced, forced, kernel
+            forced_s = []
             with swapped(obj, attr, fn):
-                t = time.perf_counter()
-                float(model.loss(params, batch))
-                forced_s = time.perf_counter() - t
-            # and the kernel's route again: kernel, forced, kernel
+                for _ in range(2):
+                    t = time.perf_counter()
+                    float(model.loss(params, batch))
+                    forced_s.append(time.perf_counter() - t)
             t = time.perf_counter()
             float(model.loss(params, batch))
             t_fwd2 = time.perf_counter() - t
@@ -1299,8 +1376,11 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
                naive_forward_s=t_naive, launches=path,
                peak_gib=peak_fwd / 2**30, power=smi, **extra)
     if forced is not None:
-        fwd.update({f"forward_s_{forced[0]}": forced_s,
-                    f"forward_tokens_per_s_{forced[0]}": B * S / forced_s,
+        fwd.update({f"forward_s_{forced[0]}": forced_s[0],
+                    f"forward_tokens_per_s_{forced[0]}": B * S / forced_s[0],
+                    f"forward_s_{forced[0]}_again": forced_s[1],
+                    f"forward_tokens_per_s_{forced[0]}_again":
+                        B * S / forced_s[1],
                     "forward_s_again": t_fwd2,
                     "forward_tokens_per_s_again": B * S / t_fwd2})
     say(f"{tag}-full", json.dumps(fwd))
@@ -1773,7 +1853,7 @@ def phase_hybrid_moe(dev, kmods, smi) -> dict:
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
 
-    hymba = FLASH_TC + ("ssd_scan",)     # the CUDA-core SSD route (P 50)
+    hymba = FLASH_TC + SSD_TC     # both tensor-core routes (SSD: P 50)
     paths = {}
     phase_reference(dev, kmods, "hymba-2l", "hymba1p5b_2l_reference.json",
                     per_layer(2, *hymba),
@@ -1782,7 +1862,7 @@ def phase_hybrid_moe(dev, kmods, smi) -> dict:
         dev, kmods, smi, "hymba", "hymba-1.5b", per_layer(32, *hymba),
         {"y_diag zeroed": ssd_faults(ssd_scan)["y_diag zeroed"],
          "keys 128 back dropped": flash_faults(ops)["keys 128 back dropped"]},
-        POSITIONS_MAMBA, by_layer=True)
+        POSITIONS_MAMBA, forced=cuda_core_ssd(ssd_scan), by_layer=True)
     paths["hymba-1.5b forward, 32 layers"] = full["forward"]["launches"]
     phase_reference(dev, kmods, "mixtral-2l",
                     "mixtral8x22b_2l_reference.json",
@@ -1878,7 +1958,7 @@ def main() -> int:
         raise AssertionError(f"unexpected kernel launches: {sim_launches}")
 
     flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
-    ssd_tc, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
+    ssd_tc, ssd_tcx, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
     phase_reference(dev, kmods, "granite-2l", "granite8b_2l_reference.json",
                     per_layer(2, *FLASH_TC), lambda params: flash_faults(ops))
     full = phase_full(dev, kmods, smi, "granite", "granite-8b",
@@ -1892,21 +1972,10 @@ def main() -> int:
 
     phase_reference(dev, kmods, "mamba2-2l", "mamba2_2l_reference.json",
                     per_layer(2, *SSD_TC), lambda params: ssd_faults(ssd_scan))
-
-    def cuda_core_ssd(x, dt, A, B, C, **kw):
-        """The CUDA-core SSD kernel through its own entry point."""
-        BH, c, Q, P = x.shape
-        outs = (torch.empty((BH, c, Q, P), device=dev),
-                torch.empty((BH, c, P, B.shape[-1]), device=dev),
-                torch.empty((BH, c), device=dev))
-        ssd_scan.launch_route("cuda_core", x, dt, A, B, C, *outs, **kw)
-        return outs
-
     full = phase_full(dev, kmods, smi, "mamba2", "mamba2-1.3b",
                       per_layer(48, *SSD_TC), ssd_faults(ssd_scan),
-                      POSITIONS_MAMBA,
-                      forced=("cuda_core_ssd", ssd_scan, "ssd_intra_chunk",
-                              cuda_core_ssd), by_layer=True)
+                      POSITIONS_MAMBA, forced=cuda_core_ssd(ssd_scan),
+                      by_layer=True)
     # the main path's launches: the 48-layer forward of phase 11
     path = full["forward"]["launches"]
     ssd_tc.update(launches=path["ssd_scan_tc"],
@@ -1926,11 +1995,17 @@ def main() -> int:
     flash_tc["launches_by_path"] = {
         "granite-8b forward, 36 layers": flash_tc["launches"],
         **{k: v["flash_attention_tc"] for k, v in paths.items()}}
-    ssd_cc.update(launches=paths["hymba-1.5b forward, 32 layers"]["ssd_scan"],
-                  path="hymba-1.5b forward, 32 layers (phase 17)")
+    ssd_by_path = {"mamba2-1.3b forward, 48 layers": ssd_tc["launches"],
+                   **{k: v["ssd_scan_tc"] for k, v in paths.items()}}
+    ssd_tc["launches_by_path"] = ssd_by_path
+    # the thread-loaded instance (P % 16 != 0) is hymba's
+    hy = "hymba-1.5b forward, 32 layers"
+    ssd_tcx.update(launches=paths[hy]["ssd_scan_tc"],
+                   launches_all_routes=paths[hy]["ssd_scan"],
+                   path=f"{hy} (phase 17)", launches_by_path=ssd_by_path)
 
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc,
+    print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc, ssd_tcx,
                                   ssd_cc]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

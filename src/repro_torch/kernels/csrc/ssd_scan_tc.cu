@@ -32,7 +32,8 @@
 // Bound: bytes.  At mamba2-1.3b's shape (BH 128 = B 2 x 64 heads, 32
 // chunks of Q 128, P 64, N 128) the cell reads x (bf16), dt and B, C once
 // per group and writes y and the states in f32: ~0.34 GB, 0.10 ms at
-// 3.35 TB/s, against ~22 GFLOP (0.02 ms) at the bf16 tensor-core peak.
+// 3.35 TB/s, against ~22 GFLOP (0.02 ms) at the bf16 tensor-core peak;
+// at hymba-1.5b's (the same cells, P 50, N 16) ~0.17 GB, 0.05 ms.
 // So the kernel keeps every product on the tensor cores and its inputs in
 // shared memory, reads B and C per group (the heads of one group are
 // adjacent in the launch order, so all but the first read come from L2),
@@ -41,13 +42,24 @@
 //
 // Design: one block of two warpgroups per (bh, chunk), blocks ordered
 // (group, chunk, head) with the head fastest.  One thread issues TMA loads
-// of C and B (one barrier) and x (another) with the 128-byte swizzle wgmma
-// reads: rows of 64 bf16, a wider N or P as several such boxes, N and P
-// zero-filled by TMA up to a whole box.  Meanwhile warp 0 computes acum
-// and the per-row state weights.  The Q / 64 row blocks of y are dealt to
-// the two warpgroups to balance the lower triangle; then the
-// (P / 64) x (N / 64) state tiles.  y and the states are stored from the
-// accumulator fragments.
+// of C and B (one barrier) with the 128-byte swizzle wgmma reads: rows of
+// 64 bf16, a wider N as several such boxes, zero-filled by TMA up to a
+// whole box.  x is filled into the same layout in one of two ways (the
+// template flag XTMA):
+// - by TMA (another barrier), for P % 16 == 0 (the threads' fill is
+//   ~19% slower at mamba2-1.3b's cell on an H100);
+// - by the block's threads, for any other even P (hymba-1.5b's P 50): a
+//   tensor map needs row strides that are multiples of 16 bytes, and a row
+//   of P 50 bf16 is 100 bytes.  The cell's Q x P values are contiguous and
+//   16-byte aligned (Q % 64 == 0), so each thread reads 16 bytes at a time
+//   (four bf16 pairs; with P even no pair straddles two rows), stores each
+//   pair at its swizzled place and zeroes the columns P .. 64 PB - 1; a
+//   proxy fence and the block barrier then order these writes before the
+//   first wgmma reads them.  TMA still brings B and C meanwhile.
+// Meanwhile warp 0 computes acum and the per-row state weights.  The
+// Q / 64 row blocks of y are dealt to the two warpgroups to balance the
+// lower triangle; then the (P / 64) x (N / 64) state tiles.  y and the
+// states are stored from the accumulator fragments.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +75,30 @@ constexpr int ATOM = 1024;                // 8 rows x 128 bytes
 constexpr int SMEM_MAX = 232448;          // bytes a block may use
 
 __host__ __device__ inline int boxes(int n) { return (n + BOX - 1) / BOX; }
+
+// PHASE(k): a phase boundary of a block.  Empty unless built with
+// -DSSD_PHASE_STAMPS (benchmarks_torch/ssd_phases.py), where the calling
+// thread writes %globaltimer to stamp k of its block (k 0 also the SM's
+// id to stamp 6): 0 start, 1 set-up done, 2 + wg warpgroup wg's rows of
+// y done, 4 B o w done, 5 end.
+#ifdef SSD_PHASE_STAMPS
+constexpr int STAMPS = 8;                 // per block
+__device__ unsigned long long g_stamps[STAMPS << 14];
+__device__ __forceinline__ void phase_stamp(int k) {
+  if (blockIdx.x >= (1u << 14)) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  g_stamps[blockIdx.x * STAMPS + k] = t;
+  if (k == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_stamps[blockIdx.x * STAMPS + 6] = sm;
+  }
+}
+#define PHASE(k) phase_stamp(k)
+#else
+#define PHASE(k) do {} while (0)
+#endif
 
 // Dynamic shared memory: C, B, x tiles (atom-aligned, plus slack for the
 // alignment), then dt, acum and the state weights, then two barriers.
@@ -215,14 +251,65 @@ __device__ __forceinline__ int owner(int rb) {
   return ((rb / 2) % 2) ? 1 - rb % 2 : rb % 2;
 }
 
+// Byte offset of bf16 element (r, col) in boxes of 64 columns (box_bytes
+// apart, each 1024-byte aligned) under the 128-byte swizzle, as TMA
+// writes it: the 16-byte chunk (col % 64) / 8 of row r sits at chunk
+// ((col % 64) / 8) ^ (r % 8).
+__device__ __forceinline__ uint32_t swizzled(int r, int col,
+                                             uint32_t box_bytes) {
+  return (col / BOX) * box_bytes + r * 128
+         + ((((col % BOX) / 8) ^ (r % 8)) << 4) + (col % 8) * 2;
+}
+
+// x's cell [Q, P] (bf16, contiguous, 16-byte aligned, P even) into the
+// PB boxes at sx, by all the block's threads, columns P .. 64 PB - 1
+// zeroed.  Each thread first loads up to FILL 16-byte pieces, then stores
+// them, so that its loads are in flight together.
+constexpr int FILL = 4;
+template <int PB>
+__device__ __forceinline__ void fill_x(uint8_t* sx, const uint4* xc, int Q,
+                                       int P, uint32_t box_bytes) {
+  const int pieces = Q * P / 8;
+  for (int i0 = threadIdx.x; i0 < pieces; i0 += FILL * THREADS) {
+    uint4 v[FILL];
+#pragma unroll
+    for (int u = 0; u < FILL; ++u)
+      if (i0 + u * THREADS < pieces) v[u] = __ldg(xc + i0 + u * THREADS);
+#pragma unroll
+    for (int u = 0; u < FILL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i >= pieces) break;
+      const uint32_t* e = reinterpret_cast<const uint32_t*>(&v[u]);
+      int r = 8 * i / P, col = 8 * i - r * P;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        *reinterpret_cast<uint32_t*>(sx + swizzled(r, col, box_bytes)) = e[m];
+        col += 2;
+        if (col == P) {
+          col = 0;
+          ++r;
+        }
+      }
+    }
+  }
+  const int pad = (BOX * PB - P) / 2;              // zero pairs per row
+  for (int i = threadIdx.x; i < Q * pad; i += THREADS) {
+    const int r = i / pad;
+    *reinterpret_cast<uint32_t*>(
+        sx + swizzled(r, P + 2 * (i - r * pad), box_bytes)) = 0u;
+  }
+}
+
 // Accumulator fragment of wgmma m64n64 (f32), thread t of the warpgroup,
 // warp w = t / 32, lane: element i is row 16 w + lane / 4 + 8 ((i / 2) % 2),
 // column 8 (i / 4) + 2 (lane % 4) + i % 2.
-template <int PB>
+// XTMA: x by TMA through mx; else by the threads from xg (mx unused).
+template <int PB, bool XTMA>
 __global__ void __launch_bounds__(THREADS, 1)
     ssd_intra_tc(const __grid_constant__ CUtensorMap mx,
                  const __grid_constant__ CUtensorMap mb,
                  const __grid_constant__ CUtensorMap mc,
+                 const uint4* __restrict__ xg,
                  const float* __restrict__ dt, const float* __restrict__ A,
                  float* __restrict__ y, float* __restrict__ st,
                  float* __restrict__ dc, int chunks, int heads, int Q, int P,
@@ -246,6 +333,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int gc = blockIdx.x / heads;               // group * chunks + chunk
   const int bh = (gc / chunks) * heads + h;
   const int64_t cell = static_cast<int64_t>(bh) * chunks + gc % chunks;
+  if (threadIdx.x == 0) PHASE(0);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_bc, 1);
@@ -259,12 +347,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       tma_load(sC + j * box_bytes, &mc, bar_bc, j * BOX, 0, gc);
       tma_load(sB + j * box_bytes, &mb, bar_bc, j * BOX, 0, gc);
     }
-    mbar_expect_tx(bar_x, PB * box_bytes);
+    if constexpr (XTMA) {
+      mbar_expect_tx(bar_x, PB * box_bytes);
 #pragma unroll
-    for (int j = 0; j < PB; ++j)
-      tma_load(sX + j * box_bytes, &mx, bar_x, j * BOX, 0,
-               static_cast<int>(cell));
+      for (int j = 0; j < PB; ++j)
+        tma_load(sX + j * box_bytes, &mx, bar_x, j * BOX, 0,
+                 static_cast<int>(cell));
+    }
   }
+  if constexpr (!XTMA)
+    fill_x<PB>(smem_raw + (sX - raw), xg + cell * Q * P / 8, Q, P,
+               box_bytes);
 
   // warp 0, while the tiles arrive: acum = cumsum(dt * A) (each lane a
   // run of Q / 32 rows, then a scan of the runs), the state weights
@@ -294,7 +387,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       coef[i] = dts[i] * expf(a_last - acum[i]);
     if (lane == 0) dc[cell] = expf(a_last);
   }
+  // x's generic-proxy writes (thread-filled), before wgmma reads them
+  if constexpr (!XTMA)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  if (threadIdx.x == 0) PHASE(1);
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
@@ -314,21 +411,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int q_lo = 64 * rb + r_lo;
     const float aq_lo = acum[q_lo], aq_hi = acum[q_lo + 8];
     for (int kt = 0; kt <= rb; ++kt) {
-      // S = C B^T for 64 rows and 64 keys, 16 state columns per wgmma
+      // S = C B^T for 64 rows and 64 keys, 16 state columns per wgmma,
+      // N / 16 of them (the box's zero fill beyond N is not multiplied)
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
       keep(sc);
       wg_fence();
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk)
-          wgmma_ss_kk(sc,
-                      desc(sC + j * box_bytes + rb * 64 * 128 + kk * 32, 16,
-                           ATOM),
-                      desc(sB + j * box_bytes + kt * 64 * 128 + kk * 32, 16,
-                           ATOM),
-                      (j | kk) != 0);
+      for (int s = 0; s < N / 16; ++s) {
+        const uint32_t off = (s / 4) * box_bytes + (s % 4) * 32;
+        wgmma_ss_kk(sc, desc(sC + off + rb * 64 * 128, 16, ATOM),
+                    desc(sB + off + kt * 64 * 128, 16, ATOM), s != 0);
+      }
       wg_commit();
       wg_wait_all();
       keep(sc);
@@ -361,7 +455,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           wl[kk][r] = pack_bf16(a - hf.x, b - hf.y);
         }
 
-      if (!x_ready) {
+      if (XTMA && !x_ready) {
         mbar_wait(bar_x, 0);
         x_ready = true;
       }
@@ -392,7 +486,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < PB; ++j)
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
-        const int col = j * BOX + 8 * n8 + cq;      // even; P % 16 == 0
+        const int col = j * BOX + 8 * n8 + cq;      // even, as P is
         if (col >= P) continue;
         *reinterpret_cast<float2*>(yc + static_cast<int64_t>(q_lo) * P
                                    + col) =
@@ -402,6 +496,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             make_float2(acc[j][4 * n8 + 2], acc[j][4 * n8 + 3]);
       }
   }
+
+  if (tid == 0) PHASE(2 + wg);
 
   // ---- B o w as bf16 hi (over B) + lo (over C): no product reads C or
   // B any more once every warpgroup is past here ----
@@ -432,7 +528,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   // the generic-proxy writes above, before wgmma reads them
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  mbar_wait(bar_x, 0);
+  if constexpr (XTMA) mbar_wait(bar_x, 0);
+  if (threadIdx.x == 0) PHASE(4);
 
   // ---- state = x^T (B o w), one 64 x 64 tile at a time ----
   for (int t = wg; t < PB * NB; t += WGS) {
@@ -470,6 +567,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             make_float2(sacc[4 * n8 + 2], sacc[4 * n8 + 3]);
     }
   }
+  if (threadIdx.x == 0) PHASE(5);
 }
 
 // cuTensorMapEncodeTiled, fetched from libcuda at run time so that the
@@ -516,7 +614,7 @@ bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int PB>
+template <int PB, bool XTMA>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* B, const void* C, void* y, void* st, void* dc,
                    int64_t BH, int64_t heads, int64_t chunks, int64_t Q,
@@ -524,19 +622,20 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
                    cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  CUtensorMap mx, mb, mc;
-  if (!tensor_map(&mx, enc, x, BH * chunks, Q, P) ||
+  CUtensorMap mx = {}, mb, mc;
+  if ((XTMA && !tensor_map(&mx, enc, x, BH * chunks, Q, P)) ||
       !tensor_map(&mb, enc, B, BH / heads * chunks, Q, N) ||
       !tensor_map(&mc, enc, C, BH / heads * chunks, Q, N))
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(smem_of(Q, P, N));
   // above 48 KiB only after opting in (per device, so on every launch)
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_intra_tc<PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_intra_tc<PB, XTMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  ssd_intra_tc<PB><<<static_cast<unsigned>(BH * chunks), THREADS, smem,
-                     stream>>>(
-      mx, mb, mc, static_cast<const float*>(dt),
+  ssd_intra_tc<PB, XTMA><<<static_cast<unsigned>(BH * chunks), THREADS, smem,
+                           stream>>>(
+      mx, mb, mc, static_cast<const uint4*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<float*>(y),
       static_cast<float*>(st), static_cast<float*>(dc),
       static_cast<int>(chunks), static_cast<int>(heads), static_cast<int>(Q),
@@ -545,8 +644,22 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 }
 
 bool takes(int64_t Q, int64_t P, int64_t N) {
-  return Q % 64 == 0 && Q >= 64 && Q <= 256 && P % 16 == 0 && P > 0 &&
+  return Q % 64 == 0 && Q >= 64 && Q <= 256 && P % 2 == 0 && P > 0 &&
          P <= 256 && N % 16 == 0 && N > 0 && N <= 256;
+}
+
+// x by TMA where its rows are whole 32-byte steps, else by the threads
+template <int PB>
+cudaError_t launch_x(const void* x, const void* dt, const void* A,
+                     const void* B, const void* C, void* y, void* st,
+                     void* dc, int64_t BH, int64_t heads, int64_t chunks,
+                     int64_t Q, int64_t P, int64_t N, int round_scores,
+                     cudaStream_t s) {
+  return P % 16 == 0
+             ? launch<PB, true>(x, dt, A, B, C, y, st, dc, BH, heads, chunks,
+                                Q, P, N, round_scores, s)
+             : launch<PB, false>(x, dt, A, B, C, y, st, dc, BH, heads,
+                                 chunks, Q, P, N, round_scores, s);
 }
 
 }  // namespace
@@ -559,9 +672,17 @@ extern "C" int64_t ssd_intra_chunk_tc_smem(int64_t Q, int64_t P, int64_t N) {
 
 // bf16 x [BH, c, Q, P], B/C [BH / heads, c, Q, N] (16-byte aligned); f32
 // dt [BH, c, Q], A [BH] -> f32 y [BH, c, Q, P], st [BH, c, P, N], dc
-// [BH, c]; all contiguous.  round_scores != 0 rounds C B^T to bf16.  The wrapper checks devices, shapes, dtypes and
-// contiguity before calling; the limits below are checked again here.
+// [BH, c]; all contiguous; P even.  round_scores != 0 rounds C B^T to
+// bf16.  The wrapper checks devices, shapes, dtypes and contiguity before
+// calling; the limits below are checked again here.
 // Returns the launch's cudaError_t.
+#ifdef SSD_PHASE_STAMPS
+// The stamps of the last launch: STAMPS per block, blocks 0 .. 2^14 - 1.
+extern "C" int ssd_phase_stamps(void* dst, size_t n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_stamps, n));
+}
+#endif
+
 extern "C" cudaError_t ssd_intra_chunk_tc_fwd(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* y, void* st, void* dc, int64_t BH, int64_t heads,
@@ -577,16 +698,16 @@ extern "C" cudaError_t ssd_intra_chunk_tc_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (boxes(static_cast<int>(P))) {
     case 1:
-      return launch<1>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
-                       round_scores, s);
+      return launch_x<1>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
+                         round_scores, s);
     case 2:
-      return launch<2>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
-                       round_scores, s);
+      return launch_x<2>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
+                         round_scores, s);
     case 3:
-      return launch<3>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
-                       round_scores, s);
+      return launch_x<3>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
+                         round_scores, s);
     default:
-      return launch<4>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
-                       round_scores, s);
+      return launch_x<4>(x, dt, A, B, C, y, st, dc, BH, heads, chunks, Q, P, N,
+                         round_scores, s);
   }
 }

@@ -7,12 +7,15 @@ and shapes before any launch:
 
 - ``"tensor_core"`` (``csrc/ssd_scan_tc.cu``): bf16 ``x``, ``B``, ``C``
   with f32 ``dt`` and ``A`` (as the model gives them), ``Q % 64 == 0`` with
-  ``64 <= Q <= 256``, ``P % 16 == 0`` with ``P <= 256`` and ``N % 16 == 0``
-  with ``N <= 256``: the three products on the tensor cores (wgmma), the
-  tiles by TMA, ``B`` and ``C`` read once per group by index;
+  ``64 <= Q <= 256``, any even ``P <= 256`` and ``N % 16 == 0`` with
+  ``N <= 256``: the three products on the tensor cores (wgmma), ``B`` and
+  ``C`` by TMA and read once per group by index, ``x`` by TMA where
+  ``P % 16 == 0`` (mamba2's P 64) and by the block's threads for any
+  other even ``P`` (hymba's P 50, whose 100-byte rows no tensor map
+  takes);
 - ``"cuda_core"`` (``csrc/ssd_scan.cu``): everything else (f32 inputs, the
-  smoke configs' short chunks, hymba's P 50), f32 products on the CUDA
-  cores; ``B`` and ``C`` are expanded to one copy per head first.
+  smoke configs' short chunks, odd ``P``, ``P > 256``), f32 products on
+  the CUDA cores; ``B`` and ``C`` are expanded to one copy per head first.
 
 It is a dispatch, not a fallback: a tensor the route's kernel does not
 take (misaligned, too large for shared memory) raises, and a failed build
@@ -57,13 +60,13 @@ def _lib(name: str) -> ctypes.CDLL:
 def route(dtypes, Q: int, P: int, N: int) -> str:
     """Which kernel takes a CUDA call, from the dtypes of (x, dt, A, B, C)
     and the chunk's sizes: ``"tensor_core"`` for bf16 x, B, C with f32 dt,
-    A and ``Q % 64 == 0``, ``64 <= Q <= 256``, ``P % 16 == 0``,
+    A and ``Q % 64 == 0``, ``64 <= Q <= 256``, ``P`` even with
     ``0 < P <= 256``, ``N % 16 == 0``, ``0 < N <= 256``; else
     ``"cuda_core"``."""
     bf, f32 = torch.bfloat16, torch.float32
     x, dt, A, B, C = dtypes
     if (x, dt, A, B, C) == (bf, f32, f32, bf, bf) and Q % 64 == 0 \
-            and 64 <= Q <= 256 and P % 16 == 0 and 0 < P <= 256 \
+            and 64 <= Q <= 256 and P % 2 == 0 and 0 < P <= 256 \
             and N % 16 == 0 and 0 < N <= 256:
         return "tensor_core"
     return "cuda_core"
@@ -168,8 +171,8 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"need {smem} bytes of shared memory (limit "
                          f"{SMEM_LIMIT}) or BH*c {BH * c} exceeds the grid")
     if name == "tensor_core" and any(t.data_ptr() % 16 for t in (x, B, C)):
-        raise ValueError("ssd_intra_chunk: the tensor-core kernel's TMA "
-                         "loads need 16-byte aligned x, B, C")
+        raise ValueError("ssd_intra_chunk: the tensor-core kernel's "
+                         "16-byte loads need 16-byte aligned x, B, C")
     launch_route(name, x, dt, A, B, C, y, st, dc, heads=heads,
                  round_scores=round_scores)
     launches += 1

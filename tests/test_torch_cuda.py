@@ -20,14 +20,19 @@ without one).  Torch only, so they also run where JAX is not installed:
   shape, one launch per call, and ``ops.ssd`` on the card against the CPU;
   the tensor-core SSD kernel (bf16 x, B, C, Q 64-256) at its own cases
   (B and C by group for 1, 8 and 64 heads, ragged chunk counts, P and N
-  padded to a box) to 1e-4 of each output's largest entry, with the
-  scores rounded to bf16 to 2^-7 (one flipped rounding), each moving its
-  own launch count by one; f32
-  inputs on the CUDA-core kernel; and a 2-layer mamba2 (d 512, P 64, N
-  128, chunk 128) with ``impl="pallas"`` against ``impl="naive"``;
+  padded to a box, P not a multiple of 16 with x loaded by the threads,
+  hymba-1.5b's P 50 among them) to 1e-4 of each output's largest entry,
+  with the scores rounded to bf16 to 2^-7 (one flipped rounding), each
+  moving its own launch count by one, and hymba's cell bitwise equal
+  from run to run; f32 inputs on the CUDA-core kernel; and a 2-layer
+  mamba2 (d 512, P 64, N 128, chunk 128) with ``impl="pallas"`` against
+  ``impl="naive"``;
 - hymba-1.5b's width at 2 layers with ``impl="pallas"`` (the windowed
-  tensor-core flash kernel and the CUDA-core SSD kernel, P 50) against
-  ``impl="naive"``; the MoE layer's dispatch on the card equal to the
+  tensor-core flash kernel and the tensor-core SSD kernel, P 50) against
+  ``impl="naive"``, by loss, by whole logits (2^-5 of the largest, or
+  what one ulp of one input moves naive's own logits by, where that is
+  more) and layer by layer; the MoE layer's dispatch
+  on the card equal to the
   CPU's (planted ties, drops);
 - the wrappers refuse what their kernels do not take.
 """
@@ -381,6 +386,19 @@ SSD_TC_CASES = [
     (1, 64, 3, 128, 64, 128, True),
     (3, 1, 2, 64, 32, 48, False),                 # P and N padded to a box
     (1, 2, 1, 192, 80, 16, True),
+    # P not a multiple of 16: x loaded by the threads, not TMA
+    (2, 64, 2, 128, 50, 16, False),               # hymba-1.5b's cell
+    (2, 64, 2, 128, 50, 16, True),
+    (1, 8, 3, 64, 24, 16, False),
+    (1, 8, 3, 64, 24, 16, True),
+    (3, 2, 2, 128, 100, 32, False),               # two boxes
+    (3, 2, 2, 128, 100, 32, True),
+    (1, 2, 1, 256, 130, 16, False),               # three boxes, Q 256
+    (1, 2, 1, 256, 130, 16, True),
+    (1, 4, 2, 256, 250, 32, False),               # four boxes, Q 256
+    (1, 4, 2, 256, 250, 32, True),
+    (1, 2, 1, 128, 200, 16, False),               # four boxes, Q 128
+    (1, 2, 1, 128, 200, 16, True),
 ]
 
 
@@ -413,6 +431,22 @@ def test_ssd_tensor_core_kernel_matches_plain_version(case, cuda):
         w = w.cpu().numpy()
         np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
                                    atol=tol * np.abs(w).max())
+
+
+def test_ssd_tensor_core_thread_loaded_x_is_deterministic(cuda):
+    """hymba-1.5b's cell (P 50: x stored to shared memory by the threads)
+    twice gives bitwise equal outputs: wgmma reading x before the proxy
+    fence has made those stores visible would differ from run to run."""
+    G, heads, c, Q, P, N = 2, 64, 32, 128, 50, 16
+    args = _ssd_tc_inputs(G, heads, c, Q, P, N, cuda)
+    assert ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) \
+        == "tensor_core"
+    runs = [ssd_scan.ssd_intra_chunk(*args, heads=heads, round_scores=True)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
 
 
 def test_ssd_f32_takes_cuda_core_kernel(cuda):
@@ -470,10 +504,24 @@ def test_mamba_pallas_matches_naive_on_card(cuda):
                                atol=2.0 ** -5 * np.abs(lg["naive"]).max())
 
 
-def test_hymba_pallas_matches_naive_on_card(cuda):
+# (batch row, position, feature) of the embedding entries that
+# ``test_hymba_pallas_matches_naive_on_card`` moves by one bf16 ulp
+HYMBA_NUDGES = ((0, 0, 0), (1, 100, 5), (0, 255, 17), (1, 7, 900))
+
+
+def test_hymba_pallas_matches_naive_on_card(cuda, monkeypatch):
     """hymba-1.5b's width at 2 layers: every layer launches the
-    tensor-core flash kernel once (hd 64, the window) and the CUDA-core
-    SSD kernel once (P 50), never the tensor-core SSD kernel."""
+    tensor-core flash kernel once (hd 64, the window) and the tensor-core
+    SSD kernel once (P 50, x loaded by the threads), never the CUDA-core
+    SSD kernel.  The loss is held to naive's; the whole logits to naive's
+    at 2^-5 of the largest, or at the one-ulp sensitivity where that is
+    larger: the most naive's own logits move when one embedding entry (at
+    each of ``HYMBA_NUDGES``) moves by one bf16 ulp.  At this seed one
+    such ulp moves single logits by more than 2^-5, so any two right SSD
+    versions may differ by as much; the kernel and its plain version are
+    both held.  Each layer's sequence mixer (attention and SSM heads) is
+    held to naive's on naive's residual stream at 2^-5 of its largest
+    entry, as ``chip_smoke.py`` holds hymba."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.models.model import Model
@@ -488,14 +536,54 @@ def test_hymba_pallas_matches_naive_on_card(cuda):
     torch.cuda.synchronize()
     assert (flash_attention.tc_launches, ssd_scan.launches,
             ssd_scan.tc_launches) == (before[0] + 2, before[1] + 2,
-                                      before[2])
+                                      before[2] + 2)
     want = Model(cfg, impl="naive").loss(params, batch)
     np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
-    lg = {impl: tf.lm_logits(cfg, params, tf.lm_hidden(
-        cfg, params, toks, impl=impl)).float()[..., :cfg.vocab].cpu().numpy()
-        for impl in ("pallas", "naive")}
-    np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
-                               atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+    def logits(impl):
+        with torch.no_grad():
+            return tf.lm_logits(cfg, params, tf.lm_hidden(
+                cfg, params, toks, impl=impl)).float()[..., :cfg.vocab]
+
+    naive = logits("naive")
+    rel = lambda lg: float((lg - naive).abs().max() / naive.abs().max())  # noqa
+    real_embed, sensitivity = tf.embed, 0.0
+    for b, s, j in HYMBA_NUDGES:
+        def nudged(emb, tokens, b=b, s=s, j=j):
+            x = real_embed(emb, tokens).clone()
+            x[b, s, j] = x[b, s, j] * (1 + 2.0 ** -7)
+            return x
+        with monkeypatch.context() as m:
+            m.setattr(tf, "embed", nudged)
+            sensitivity = max(sensitivity, rel(logits("naive")))
+    errs = {"kernel": rel(logits("pallas"))}
+    with monkeypatch.context() as m:
+        m.setattr(ssd_scan, "ssd_intra_chunk", lambda x, dt, A, B, C, heads,
+                  round_scores: ssd_intra_chunk_ref(
+                      x, dt, A, B.repeat_interleave(heads, 0),
+                      C.repeat_interleave(heads, 0),
+                      round_scores=round_scores))
+        errs["plain version"] = rel(logits("pallas"))
+    limit = max(2.0 ** -5, sensitivity)
+    print(f"hymba 2 layers, whole logits vs naive (of the largest): {errs}, "
+          f"one-ulp sensitivity {sensitivity}, limit {limit}")
+    for name, err in errs.items():
+        assert err <= limit, (name, err, limit)
+    x = tf.embed(params["embed"], toks).to(torch.bfloat16)
+    pos = torch.arange(x.shape[1], device=cuda)
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lp = tf.layer_params(params["layers"], i)
+            mix = {impl: tf.mixer(cfg, x, lp, positions=pos, causal=True,
+                                  impl=impl).float()
+                   for impl in ("naive", "pallas")}
+            w = mix["naive"].cpu().numpy()
+            np.testing.assert_allclose(mix["pallas"].cpu().numpy(), w,
+                                       rtol=0,
+                                       atol=2.0 ** -5 * np.abs(w).max())
+            x = x + mix["naive"].to(x.dtype)
+            if "ffn" in lp:
+                x = x + tf.ffn(cfg, x, lp)
 
 
 def test_moe_dispatch_on_card_equals_cpu(cuda):

@@ -94,11 +94,12 @@ def test_config_is_the_hybrid_family():
     cfg = base.get_config(NAME)
     assert cfg.family == "hybrid" and cfg.has_attention and cfg.has_ssm
     assert (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state) == (64, 50, 16)
-    # hymba's SSM heads take the CUDA-core SSD kernel (P 50), its attention
-    # the tensor-core flash kernel (bf16, hd 64)
+    # hymba's SSM heads take the tensor-core SSD kernel (P 50: x loaded by
+    # the threads, not TMA), its attention the tensor-core flash kernel
+    # (bf16, hd 64)
     bf, f32 = torch.bfloat16, torch.float32
     assert ssd_scan.route((bf, f32, f32, bf, bf), cfg.ssm_chunk,
-                          cfg.ssm_head_dim, cfg.ssm_state) == "cuda_core"
+                          cfg.ssm_head_dim, cfg.ssm_state) == "tensor_core"
     assert flash_attention.route(bf, cfg.hd) == "tensor_core"
 
 

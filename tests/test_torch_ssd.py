@@ -1,7 +1,8 @@
 """SSD: the port's ``ref.ssd_intra_chunk_ref`` (the plain version the
 kernel's wrapper takes on the CPU) against the JAX package's Pallas kernel
-in interpret mode, on the cases of ``tests/test_kernels_ssd.py`` at its
-tolerances (1e-4 f32, 5e-2 bf16); and ``ops.ssd`` whole against the JAX
+in interpret mode, on the cases of ``tests/test_kernels_ssd.py`` and at
+hymba-1.5b's cell shape (Q 128, P 50, N 16) at its tolerances (1e-4 f32,
+5e-2 bf16); and ``ops.ssd`` whole against the JAX
 package's ``ops.ssd`` and the model's chunked SSD at 2e-4.  The CUDA kernel
 against its plain version is in ``test_torch_cuda.py``.
 
@@ -28,6 +29,8 @@ CASES = [
     (4, 4, 32, 16, 32, "float32", 1e-4),
     (1, 1, 64, 64, 128, "float32", 1e-4),
     (2, 2, 16, 8, 16, "bfloat16", 5e-2),
+    (2, 2, 128, 50, 16, "float32", 1e-4),        # hymba-1.5b's cell shape
+    (2, 2, 128, 50, 16, "bfloat16", 5e-2),
 ]
 
 
@@ -110,3 +113,17 @@ def test_ragged_length_is_refused():
     arrs = [torch.from_numpy(a) for a in _full_inputs(1, 20, 2, 8, 8)]
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.ssd(*arrs, chunk=8)
+
+
+def test_tensor_core_kernel_marks_its_phases():
+    """The tensor-core kernel marks each phase boundary that
+    ``benchmarks_torch/ssd_phases.py`` reads once, and gives the stamps
+    back through ``ssd_phase_stamps``, both only under the define the
+    profiler builds with."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    src = (root / "src/repro_torch/kernels/csrc/ssd_scan_tc.cu").read_text()
+    for k in ("0", "1", "2 + wg", "4", "5"):
+        assert src.count(f"PHASE({k});") == 1, k
+    assert src.count("#ifdef SSD_PHASE_STAMPS") == 2
+    assert "extern \"C\" int ssd_phase_stamps(" in src

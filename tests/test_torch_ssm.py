@@ -200,7 +200,15 @@ ROUTES = [
     ((bf16, f32, f32, bf16, bf16), 128, 128, 256, "tensor_core"),
     ((bf16, f32, f32, bf16, bf16), 256, 64, 128, "tensor_core"),
     ((bf16, f32, f32, bf16, bf16), 64, 16, 16, "tensor_core"),
-    ((bf16, f32, f32, bf16, bf16), 128, 50, 16, "cuda_core"),     # hymba P
+    ((bf16, f32, f32, bf16, bf16), 128, 50, 16, "tensor_core"),   # hymba P
+    ((bf16, f32, f32, bf16, bf16), 64, 24, 16, "tensor_core"),    # x by
+    ((bf16, f32, f32, bf16, bf16), 128, 40, 32, "tensor_core"),   # threads
+    ((bf16, f32, f32, bf16, bf16), 128, 100, 32, "tensor_core"),
+    ((bf16, f32, f32, bf16, bf16), 256, 130, 16, "tensor_core"),
+    ((bf16, f32, f32, bf16, bf16), 128, 250, 16, "tensor_core"),
+    ((bf16, f32, f32, bf16, bf16), 128, 49, 16, "cuda_core"),     # odd P
+    ((bf16, f32, f32, bf16, bf16), 128, 51, 16, "cuda_core"),
+    ((bf16, f32, f32, bf16, bf16), 128, 258, 16, "cuda_core"),
     ((bf16, f32, f32, bf16, bf16), 8, 16, 16, "cuda_core"),       # smoke Q
     ((bf16, f32, f32, bf16, bf16), 16, 16, 16, "cuda_core"),
     ((bf16, f32, f32, bf16, bf16), 96, 64, 128, "cuda_core"),
