@@ -163,7 +163,26 @@ loudly:
 19. mixtral-8x22b at full width and 8 of its 56 layers (one 80 GB card):
     the forward (8 tensor-core flash launches) against ``impl="naive"``
     layer by layer (a one-ulp change can move a token to another expert),
-    serving; faults as phase 9.
+    serving; faults as phase 9;
+20. the scatter engine (``core/simulator_ref.py``) against the gather
+    engine on the card: ten cases of 200 cycles (substrate, interposer and
+    wireless 4C4M under uniform traffic, the matching and single media,
+    the token MAC, closed-loop memory, fig9's small multicast trace, the
+    lossy channel at 16 dB, a living channel), every state leaf equal but
+    the engines' own encodings; each engine's host ms a cycle, and CUDA
+    kernels a step call on each program (the driver's left out); faults:
+    masked scatter writes clamped into the table instead
+    of dropped, the reply birth's minimum into ``rdy`` taken as a maximum;
+21. fig2-fig6 and the ablations (``benchmarks/fig2_uniform.py`` to
+    ``ablations.py``: 67 points in the scripts' ``run_sweep_batched``
+    calls, the WI-density points through the raw API) at 500 cycles
+    with 100 of warm-up, the paper's 10 000 cut for this script's time
+    limit, against ``tests/torch_fixtures/paper_figs_reference.json``'s
+    ``cut`` set: every ``Metrics`` field, every ``*.check`` row's truth
+    value and every derived gain or reduction (rel 1e-6); faults as extra
+    points: one interposer link a pair where the fixture has two, WI
+    clusters of 8 cores where it has 16.  ``benchmarks_torch/
+    paper_figs.py`` runs the same phase at paper size.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
@@ -1875,6 +1894,310 @@ def phase_hybrid_moe(dev, kmods, smi) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the scatter engine and the paper's fig2-fig6 and ablations (phases 20-21)
+
+SCATTER_CYCLES = 200
+SCATTER_CASES = ("substrate", "interposer", "wireless", "matching", "single",
+                 "token", "mem_on", "multicast", "phy_on", "living")
+SCATTER_SKIP = {"out_wo", "mc_src"}   # the engines' own encodings
+# one case of each step program, for the kernel counts (the media and
+# MAC variants run the open-loop program)
+SCATTER_PROFILED = ("wireless", "mem_on", "multicast", "phy_on", "living")
+
+
+def scatter_case(case: str, cycles: int = SCATTER_CYCLES):
+    """(topo, rt, tt, phy, sim, phy_spec) of one phase-20 case: 4C4M,
+    uniform traffic at load 0.7 (30% memory) on the three fabrics and the
+    wireless variants (matching and single media, the token MAC),
+    closed-loop memory traffic (window 4), fig9's small multicast trace,
+    the lossy channel at 16 dB and a living channel (4 dB drift with
+    re-selection)."""
+    from repro_torch.core import traffic
+    from repro_torch.core.constants import (DEFAULT_PHY, Fabric, MacMode,
+                                            PhyParams, SimParams)
+    from repro_torch.core.routing import compute_routing
+    from repro_torch.core.topology import build_xcym
+    from repro_torch.phy import PhySweepSpec
+    from benchmarks_torch import figures
+    fab = {"substrate": Fabric.SUBSTRATE,
+           "interposer": Fabric.INTERPOSER}.get(case, Fabric.WIRELESS)
+    phy = {"matching": PhyParams(wireless_medium="matching"),
+           "single": PhyParams(wireless_medium="single",
+                               wireless_flit_cycles=5)}.get(case, DEFAULT_PHY)
+    sim = SimParams(cycles=cycles, warmup=100,
+                    mac=MacMode.TOKEN if case == "token"
+                    else MacMode.CONTROL_PACKET)
+    topo = build_xcym(4, 4, fab, phy)
+    spec = None
+    if case == "mem_on":
+        from repro_torch.memory import DramTimingParams, closed_loop_uniform
+        tt = closed_loop_uniform(topo, 0.5, cycles, phy.pkt_flits,
+                                 dram=DramTimingParams(max_outstanding=4),
+                                 seed=17)
+    elif case == "multicast":
+        tt = traffic.from_trace(topo, figures.bcast_trace(1024.0),
+                                phy.pkt_flits)
+    else:
+        tt = traffic.uniform_random(topo, 0.7, 0.3, cycles, phy.pkt_flits,
+                                    seed=11)
+        if case == "phy_on":
+            spec = PhySweepSpec(link_budget_db=16.0, max_retx=3)
+        elif case == "living":
+            spec = PhySweepSpec(link_budget_db=17.0, max_retx=3,
+                                drift_amp_db=4.0, reselect=True)
+    return topo, compute_routing(topo), tt, phy, sim, spec
+
+
+def state_diff(a, b, skip=SCATTER_SKIP) -> list:
+    """The leaves (of both engines' states) whose name, dtype, shape or
+    value differ."""
+    import torch
+    bad = [f for f in a._fields if f not in skip and f not in b._fields]
+    for f in a._fields:
+        if f in skip or f not in b._fields:
+            continue
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            bad.append(f)
+    return bad
+
+
+def kernels_per_step(step, st, cycles=(1, 2)):
+    """CUDA kernels one call of a cycle step launches (the driver's own
+    kernels left out), from a ``torch.profiler`` trace of ``step(st, t)``
+    at each cycle of ``cycles``; None if the profiler saw none."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            for t in cycles:
+                st = step(st, t)
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return n / len(cycles) if n else None
+
+
+def step_kernels(pg, pr) -> tuple:
+    """Kernels per cycle of the gather and the scatter step for one
+    point's packed tables (each engine's own ``pack``), from its initial
+    state."""
+    from repro_torch.core import simulator, simulator_ref
+    ssg = simulator.SimStatic(*(x[None] for x in pg.ss))
+    stg = simulator.init_state(*simulator._state_dims(pg),
+                               mem_on=pg.mem_on, phy_on=pg.phy_on,
+                               living=pg.drift_on or pg.reselect,
+                               R=int(pg.ss.wl_serv_r.shape[0]), lanes=1,
+                               device=ssg.cycles.device)
+    sg = simulator.make_step(pg.B, **pg.flags(), mc_on=pg.mc_on)
+    d = simulator.derive(ssg, pg.B)
+    ssr = simulator_ref.SimStatic(*(x[None] for x in pr.ss))
+    N, K = pr.ss.births.shape
+    str_ = simulator_ref.init_state(
+        pr.B, int(N), int(pr.ss.phase_need.shape[0]), int(K), pr.Y, pr.BK,
+        mem_on=pr.mem_on, phy_on=pr.phy_on,
+        living=pr.drift_on or pr.reselect,
+        R=int(pr.ss.wl_serv_r.shape[0]), lanes=1, device=ssr.cycles.device)
+    sr = simulator_ref.make_step(pr.B, pr.Wout, pr.RXW, **pr.flags())
+    return (kernels_per_step(lambda s, t: sg(ssg, d, s, t), stg),
+            kernels_per_step(lambda s, t: sr(ssr, s, t), str_))
+
+
+def phase_scatter(dev, kmods, smi) -> dict:
+    """Phase 20: the scatter engine (``core/simulator_ref.py``) on the card,
+    held bitwise against the gather engine (which phases 4, 5 and 12-15
+    pin to the JAX package) on every state leaf but the engines' own
+    encodings (``out_wo``; ``mc_src``, which the gather engine's
+    ``src_of`` stands for): ten cases of
+    ``SCATTER_CYCLES`` cycles (``scatter_case``).  Prints each engine's
+    host ms per cycle (the chunked driver's run) and, for one case of
+    each step program, CUDA kernels per step call (``step_kernels``).  Two planted faults must be
+    rejected: masked scatter writes clamped into the table instead of
+    dropped (JAX's ``mode="drop"``), on the wireless case; the reply-birth
+    minimum into ``rdy`` taken as a maximum, on the memory case (a plain
+    ``.set`` there equals the minimum: each reply slot is born once)."""
+    import torch
+    from repro_torch.core import simulator, simulator_ref
+    zero(kmods)
+    rows, packed = {}, {}
+    t_all = time.perf_counter()
+    for case in SCATTER_CASES:
+        topo, rt, tt, phy, sim, spec = scatter_case(case)
+        pg = simulator.pack(topo, rt, tt, phy, sim, phy_spec=spec, device=dev)
+        pr = simulator_ref.pack(topo, rt, tt, phy, sim, phy_spec=spec,
+                                device=dev)
+        packed[case] = (pg, pr)
+        t = time.perf_counter()
+        g = simulator.run(pg)
+        torch.cuda.synchronize()
+        tg = time.perf_counter() - t
+        t = time.perf_counter()
+        r = simulator_ref.run(pr)
+        torch.cuda.synchronize()
+        tr = time.perf_counter() - t
+        bad = state_diff(r, g)
+        if bad:
+            raise AssertionError(f"scatter engine != gather engine on {case}:"
+                                 f" {bad}")
+        if int(g.flits_inj) == 0:
+            raise AssertionError(f"{case}: no traffic")
+        rows[case] = dict(
+            flags=pr.flags(), flits_injected=int(g.flits_inj),
+            wl_nacks=int(g.wl_nacks), pkts_dropped=int(g.pkts_dropped),
+            wl_resel=int(g.wl_resel), cur_phase=int(g.cur_phase),
+            host_ms_per_cycle_gather=tg * 1e3 / sim.cycles,
+            host_ms_per_cycle_scatter=tr * 1e3 / sim.cycles)
+    wall = time.perf_counter() - t_all
+    launches = counts(kmods)
+    expect_counts("scatter engine", launches, {})
+    for case in SCATTER_PROFILED:
+        kg, kr = step_kernels(*packed[case])
+        rows[case].update(kernels_per_cycle_gather=kg,
+                          kernels_per_cycle_scatter=kr)
+    real_index, real_put = simulator_ref._index, simulator_ref._put
+
+    def clamped(dims, idx):          # out-of-range writes kept, clamped
+        return real_index(dims, idx).clamp(max=math.prod(dims) - 1)
+
+    def rdy_max(a, ix, val, how):    # the reply birth as a maximum
+        if how != "min":
+            return real_put(a, ix, val, how)
+        return -real_put(-a, ix, -torch.as_tensor(val), "min")
+
+    why = []
+    for name, case, attr, fn in (
+            ("masked writes clamped, not dropped", "wireless", "_index",
+             clamped),
+            ("rdy reply birth .min -> .max", "mem_on", "_put", rdy_max)):
+        pg, pr = packed[case]
+        g = simulator.run(pg)
+        with swapped(simulator_ref, attr, fn):
+            r = simulator_ref.run(pr)
+
+        def check(r=r, g=g, case=case):
+            bad = state_diff(r, g)
+            if bad:
+                raise AssertionError(f"{case}: {bad}")
+        why.append(rejected(name, check))
+    rec = dict(cases=rows, cycles=SCATTER_CYCLES, wall_s=wall,
+               all_leaves_equal=True, faults_rejected=why,
+               kernel_launches_on_path=launches, power=smi)
+    say("scatter", json.dumps(rec))
+    return rec
+
+
+def phase_paper_figs(dev, kmods, smi, set_name: str = "cut",
+                     figs=None, emit=None, faults: bool = True) -> dict:
+    """fig2-fig6 and the ablations against ``tests/torch_fixtures/
+    paper_figs_reference.json``'s set ``set_name``: ``cut`` (phase 21,
+    500 cycles with 100 of warm-up, the paper's 10 000 cut for this
+    script's time limit) or ``paper`` (``benchmarks_torch/paper_figs.py``).
+    Each figure's ``run_sweep_batched`` calls and WI-density points run
+    as the script runs them (``figures.paper_calls``), with the launch
+    counts set to 0 before and read after; every point is held against
+    the fixture (every ``Metrics`` field: integers exact, floats rel
+    1e-6, NaN = NaN), every ``*.check`` row to the reference's truth
+    value and every derived gain or reduction to rel 1e-6.  ``faults``
+    plants two that must be rejected: an extra lane of the ablations'
+    two-links call with ``interposer_links_per_pair`` 1 where the fixture
+    has 2, and a WI-density run with ``wi_cluster_cores`` 8 where it has
+    16.  ``emit`` gets each script's CSV rows (paper-reported rows
+    included, not held).  Prints a JSON line per figure: wall s, points/s,
+    lane-cycles/s, batches, host set-up s (builders + ``pack``) and the
+    card's name and power limit."""
+    import torch
+    from repro_torch.core import simulator, sweep
+    from repro_torch.core.constants import Fabric, PhyParams
+    from repro_torch.core.metrics import compute_metrics
+    from repro_torch.core.sweep import SweepPoint
+    from benchmarks_torch import figures
+
+    fx = figures.fixture("paper_figs_reference.json")["sets"][set_name]
+    sim = figures.paper_sim(fx["sim"])
+    emit = emit or (lambda row: None)
+    out = {}
+    for fig in figs or figures.PAPER_FIGS:
+        want = fx["figs"][fig]
+        calls = figures.paper_calls(fig, sim)
+        if figures.call_cases(calls, sim) != [p["case"]
+                                              for p in want["points"]]:
+            raise AssertionError(f"{fig}: the grid is not the fixture's")
+        extra = {}
+        if faults and fig == "ablations":
+            # the two-links call's 4C4M interposer point, one link a pair
+            name = want["points"][7]["metrics"]["name"]
+            extra = {1: [SweepPoint(4, 4, Fabric.INTERPOSER, load=1.0,
+                                    sim=sim, name=name)]}
+        tm = {"setup_s": 0.0, "batches": 0, "depth": 0}
+
+        def timed(fn, key):
+            def wrap(*a, **kw):    # the outermost timed call counts
+                t0 = time.perf_counter()
+                tm["depth"] += 1
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    tm["depth"] -= 1
+                    if not tm["depth"]:
+                        tm[key] += time.perf_counter() - t0
+            return wrap
+
+        def counted(*a, **kw):
+            tm["batches"] += 1
+            return run_batch(*a, **kw)
+
+        run_batch = simulator.run_batch
+        zero(kmods)
+        t = time.perf_counter()
+        with swapped(sweep, "_build_point", timed(sweep._build_point,
+                                                  "setup_s")), \
+                swapped(figures, "density_packed",
+                        timed(figures.density_packed, "setup_s")), \
+                swapped(simulator, "pack", timed(simulator.pack,
+                                                 "setup_s")), \
+                swapped(simulator, "run_batch", counted):
+            ms = figures.run_paper_calls(calls, sim, dev, extra)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = counts(kmods)
+        expect_counts(f"paper {fig}", launches, {})
+        n = len(want["points"])
+        ms, fms = ms[:n], ms[n:]
+        for p, m in zip(want["points"], ms):
+            check_all(f"{fig} {m.name}", m, p["metrics"])
+        rep = figures.paper_report(fig, ms)
+        if rep["checks"] != want["checks"]:
+            raise AssertionError(f"{fig} checks {rep['checks']} != "
+                                 f"{want['checks']}")
+        bad = []
+        _diff(want["derived"], rep["derived"], f"{fig}.derived", bad)
+        if bad:
+            raise AssertionError(f"{fig} derived rows disagree: {bad}")
+        for r in rep["rows"]:
+            emit(r)
+        why = []
+        if faults and fig == "ablations":
+            why.append(rejected("interposer_links_per_pair 1 for 2", lambda: (
+                check_all("fault", fms[0], want["points"][7]["metrics"]))))
+            ps, load = figures.density_packed(8, sim, dev)
+            m8 = compute_metrics(ps, simulator.run(ps), "density_16", load)
+            (want16,) = [p["metrics"] for p in want["points"]
+                         if p["case"].get("wi_cluster_cores") == 16]
+            why.append(rejected("wi_cluster_cores 8 for 16",
+                                lambda: check_all("fault", m8, want16)))
+        rec = sim_rates(ms, wall, sim.cycles)
+        rec.update(set=set_name, cycles=sim.cycles, warmup=sim.warmup,
+                   batches=tm["batches"], host_setup_s=tm["setup_s"],
+                   checks=rep["checks"], derived_rows=len(rep["derived"]),
+                   faults_rejected=why, kernel_launches_on_path=launches,
+                   power=smi)
+        say(f"paper {fig}", json.dumps(rec))
+        out[fig] = rec
+    return out
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2003,6 +2326,11 @@ def main() -> int:
     ssd_tcx.update(launches=paths[hy]["ssd_scan_tc"],
                    launches_all_routes=paths[hy]["ssd_scan"],
                    path=f"{hy} (phase 17)", launches_by_path=ssd_by_path)
+
+    # the scatter engine against the gather engine, and fig2-fig6 with
+    # the ablations at the smoke's cut (phases 20-21)
+    phase_scatter(dev, kmods, smi)
+    phase_paper_figs(dev, kmods, smi, "cut")
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [kern, flash_tc, flash_cc, ssd_tc, ssd_tcx,

@@ -34,7 +34,11 @@ without one).  Torch only, so they also run where JAX is not installed:
   more) and layer by layer; the MoE layer's dispatch
   on the card equal to the
   CPU's (planted ties, drops);
-- the wrappers refuse what their kernels do not take.
+- the wrappers refuse what their kernels do not take;
+- the scatter engine (``core/simulator_ref.py``) on the card equals
+  itself on the CPU on every step program and the gather engine on the
+  card, every state leaf but the engines' own encodings, and its masked
+  scatter writes drop on the card as on the CPU (no device-side assert).
 """
 import numpy as np
 import pytest
@@ -614,3 +618,65 @@ def test_moe_dispatch_on_card_equals_cpu(cuda):
     (e0, d0, y0), (e1, d1, y1) = out.values()
     assert torch.equal(e0, e1) and torch.equal(d0, d1) and len(d0) > 0
     assert float((y0 - y1).abs().max()) <= 2.0 ** -7 * float(y0.abs().max())
+
+
+# ---- the scatter engine on the card
+
+SCATTER_PROGRAMS = ("wireless", "single", "mem_on", "multicast", "phy_on",
+                    "living")
+
+
+def _scatter_case(case, cycles=200):
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke, chip_smoke.scatter_case(case, cycles)
+
+
+@pytest.mark.parametrize("case", SCATTER_PROGRAMS)
+def test_scatter_engine_on_card_equals_cpu(case, cuda):
+    from repro_torch.core import simulator_ref
+    _, (topo, rt, tt, phy, sim, spec) = _scatter_case(case)
+    got = carry.state_to_numpy(simulator_ref.run(simulator_ref.pack(
+        topo, rt, tt, phy, sim, phy_spec=spec, device=cuda)))
+    want = carry.state_to_numpy(simulator_ref.run(simulator_ref.pack(
+        topo, rt, tt, phy, sim, phy_spec=spec, device="cpu")))
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(want["flits_inj"]) > 0
+
+
+@pytest.mark.parametrize("case", ("interposer", "token", "mem_on",
+                                  "multicast"))
+def test_scatter_engine_on_card_equals_gather_engine(case, cuda):
+    from repro_torch.core import simulator_ref
+    cs, (topo, rt, tt, phy, sim, spec) = _scatter_case(case)
+    r = simulator_ref.run(simulator_ref.pack(topo, rt, tt, phy, sim,
+                                             phy_spec=spec, device=cuda))
+    g = simulator.run(simulator.pack(topo, rt, tt, phy, sim, phy_spec=spec,
+                                     device=cuda))
+    assert cs.state_diff(r, g) == []
+
+
+def test_scatter_masked_writes_drop_on_card(cuda):
+    """Targets past either end (a wrapped negative, the spare slot) on the
+    card: no device-side assert, the CPU's result."""
+    from repro_torch.core import simulator_ref
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.integers(-9, 9, (2, 6, 5)).astype(np.int32))
+    i = torch.from_numpy(rng.integers(-8, 9, (2, 40)))
+    j = torch.from_numpy(rng.integers(-6, 7, (2, 40)))
+    val = torch.from_numpy(rng.integers(-9, 9, (2, 40)).astype(np.int32))
+    for how in ("add", "min"):
+        want = simulator_ref._put(base, simulator_ref._index((6, 5), (i, j)),
+                                  val, how)
+        got = simulator_ref._put(
+            base.to(cuda), simulator_ref._index((6, 5), (i.to(cuda),
+                                                         j.to(cuda))),
+            val.to(cuda), how)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
