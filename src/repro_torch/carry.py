@@ -18,7 +18,10 @@ either.
 For the model side, ``params_from_jax`` turns the reference's parameter
 tree (leaves as numpy arrays) into the port's, and ``numpy_params`` makes
 a parameter tree from a seed with the reference's distributions, so that
-both packages can be fed the same weights without JAX on the card.
+both packages can be fed the same weights without JAX on the card;
+``opt_state_from_numpy``/``opt_state_to_numpy`` carry the optimizer's
+state (the reference's ``AdamWState(step, m, v)``), so that both packages
+can continue one mid-run ``(params, opt_state)``.
 """
 from __future__ import annotations
 
@@ -169,3 +172,30 @@ def leaf_to_device(name: str, a: np.ndarray, device=None) -> torch.Tensor:
     dev = _device.resolve(device)
     t = torch.from_numpy(a)
     return (t if tf.is_f32_leaf(name) else t.to(torch.bfloat16)).to(dev)
+
+
+def _tree_to_device(tree: dict, dev) -> dict:
+    return {k: _tree_to_device(v, dev) if isinstance(v, dict) else
+            torch.from_numpy(np.array(v, dtype=np.float32, copy=True)).to(dev)
+            for k, v in tree.items()}
+
+
+def opt_state_from_numpy(step, m: dict, v: dict, device=None):
+    """The reference's ``AdamWState(step, m, v)`` as numpy (``step`` an int
+    or a 0-d array, ``m`` and ``v`` parameter-shaped trees of f32 arrays)
+    -> the port's ``AdamWState`` on ``device`` (``step`` a Python int, the
+    moments f32 tensors), so that both packages can continue one mid-run
+    state."""
+    from repro_torch.train.optimizer import AdamWState
+    dev = _device.resolve(device)
+    return AdamWState(step=int(step), m=_tree_to_device(m, dev),
+                      v=_tree_to_device(v, dev))
+
+
+def opt_state_to_numpy(state) -> tuple:
+    """A port ``AdamWState`` -> ``(step, m, v)``: an int and two trees of
+    f32 numpy arrays, the reference's ``AdamWState`` fields."""
+    def host(tree):
+        return {k: host(x) if isinstance(x, dict) else
+                x.detach().float().cpu().numpy() for k, x in tree.items()}
+    return int(state.step), host(state.m), host(state.v)

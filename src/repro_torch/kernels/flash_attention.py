@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forbid_autograd
 from repro_torch.kernels.ref import attention_ref
 
 launches = 0
@@ -89,6 +89,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     global launches, tc_launches
     ts = (q, k, v)
+    forbid_autograd("flash_attention_bhsd", *ts)
     if all(t.device.type == "cpu" for t in ts):
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)

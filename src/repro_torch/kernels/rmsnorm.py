@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forbid_autograd
 from repro_torch.kernels.ref import rmsnorm_ref
 
 launches = 0
@@ -33,6 +33,7 @@ def rmsnorm_2d(x: torch.Tensor, w: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """x: [rows, d] f32/bf16, w: [d] of x's dtype -> [rows, d] in x's dtype."""
     global launches
+    forbid_autograd("rmsnorm_2d (use ops.rmsnorm)", x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda" or w.device != x.device:

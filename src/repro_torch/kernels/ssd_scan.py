@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forbid_autograd
 from repro_torch.kernels.ref import ssd_intra_chunk_ref
 
 launches = 0
@@ -127,6 +127,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """
     global launches, tc_launches
     ts = (x, dt, A, B, C)
+    forbid_autograd("ssd_intra_chunk", *ts)
     if x.dim() != 4 or B.dim() != 4:
         raise ValueError(f"ssd_intra_chunk: x {tuple(x.shape)}, B "
                          f"{tuple(B.shape)}; want 4-d [BH, c, Q, *]")

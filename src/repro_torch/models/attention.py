@@ -115,7 +115,7 @@ def attn_shapes(d: int, H: int, Hkv: int, hd: int) -> dict:
 
 def attention(x, p, cfg, *, positions, causal=True, impl="blockwise",
               kv_cache: Optional[dict] = None, cache_slot=None,
-              valid_len=None):
+              valid_len=None, x_kv=None, use_rope=True):
     """Full attention block.
 
     Decode mode (``kv_cache`` given): writes this step's roped k/v into
@@ -125,14 +125,20 @@ def attention(x, p, cfg, *, positions, causal=True, impl="blockwise",
     reference, which returns new arrays, the write goes into ``kv_cache``'s
     tensors in place (a copy of a full-size cache per layer and step would
     cost more than the step); the returned cache holds those tensors.
-    The reference's cross-attention arguments (``x_kv``, ``use_rope``)
-    come with the encoder-decoder family (ROADMAP A9)."""
+
+    ``x_kv`` makes it cross-attention: k and v are projected from ``x_kv``
+    (the encoder's output), and only q is roped.  ``use_rope=False`` ropes
+    neither."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = rope((x @ p["wq"]).reshape(B, -1, H, hd), positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(B, -1, Hkv, hd), positions,
-             cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(B, -1, Hkv, hd)
+    src = x if x_kv is None else x_kv
+    q = (x @ p["wq"]).reshape(B, -1, H, hd)
+    k = (src @ p["wk"]).reshape(B, -1, Hkv, hd)
+    v = (src @ p["wv"]).reshape(B, -1, Hkv, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        if x_kv is None:
+            k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if kv_cache is not None:

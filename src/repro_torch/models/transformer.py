@@ -1,17 +1,21 @@
-"""Model assembly for the decoder-only LMs, in plain torch.
+"""Model assembly in plain torch: the decoder-only LMs (dense, MoE, SSM,
+hybrid), the encoder-decoder (whisper) and the VLM (LLaVA-style stub
+frontend).
 
-Port of ``repro/models/transformer.py`` for the decoder-only families:
-``dense``, ``moe`` (a top-k expert FFN, ``models/moe.py``), ``ssm`` (pure
-Mamba2) and ``hybrid`` (attention and SSM heads in parallel, averaged).
-The parameters keep the reference's tree (a nested dict with the layers
-stacked on a leading axis), and a Python loop over the layers takes the
-place of ``lax.scan``.  The ``encdec`` and ``vlm`` families raise
-``NotImplementedError`` naming their ROADMAP item.  No
-rematerialisation: the forward needs none, and training is a later slice.
+Port of ``repro/models/transformer.py``.  The parameters keep the
+reference's tree (a nested dict with the layers stacked on a leading
+axis), and a Python loop over the layers takes the place of ``lax.scan``.
+The ``encdec`` family runs a bidirectional encoder over frame embeddings
+(the conv frontend is a stub, as in the reference) and a decoder whose
+layers add a cross-attention sublayer; the ``vlm`` family puts projected
+patch embeddings before the tokens and scores only the text positions.
+``remat`` (none|dots|full|block) is ``torch.utils.checkpoint`` around the
+layers, as the reference's ``jax.checkpoint`` is.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -21,18 +25,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (chunked_xent, glu_mlp, mlp_shapes,
                                        norm, norm_shapes)
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "encdec": "ROADMAP A9: the encoder-decoder family",
-    "vlm": "ROADMAP A9: the VLM family",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"({_NOT_PORTED.get(cfg.family, 'ROADMAP A9')})")
+REMAT = ("none", "dots", "full", "block")
 
 
 # --------------------------------------------------------------------------
@@ -44,9 +37,9 @@ def _stacked(tree: dict, n: int) -> dict:
             for k, v in tree.items()}
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree as shapes (the reference's ``param_specs``)."""
-    require_ported(cfg)
+def layer_shapes(cfg: ModelConfig, cross: bool = False) -> dict:
+    """One layer's parameter shapes (the reference's ``layer_spec``);
+    ``cross`` adds the decoder's cross-attention (``ln_x``, ``xattn``)."""
     d = cfg.d_model
     layer = {"ln1": norm_shapes(d, cfg.norm)}
     if cfg.has_attention:
@@ -55,17 +48,42 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.has_ssm:
         layer["ssm"] = ssm_mod.ssm_shapes(cfg)
         layer["ln_ssm"] = norm_shapes(d, cfg.norm)      # unused by pure SSM
+    if cross:
+        layer["ln_x"] = norm_shapes(d, cfg.norm)
+        layer["xattn"] = attn_mod.attn_shapes(d, cfg.n_heads,
+                                              cfg.n_kv_heads, cfg.hd)
     if cfg.family == "moe":
         layer["ffn"] = moe_mod.moe_shapes(cfg)
     elif cfg.family != "ssm":                           # mamba2: no FFN
         layer["ffn"] = mlp_shapes(d, cfg.d_ff, cfg.mlp_gated)
     if "ffn" in layer:
         layer["ln2"] = norm_shapes(d, cfg.norm)
+    return layer
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: the decoder's widths as a dense stack with
+    full attention (the reference's ``cfg.scaled(family="dense",
+    sliding_window=0)``)."""
+    return cfg.scaled(family="dense", sliding_window=0)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree as shapes (the reference's ``param_specs``)."""
+    d = cfg.d_model
     shapes = {"embed": (cfg.vocab_padded, d),
               "ln_f": norm_shapes(d, cfg.norm),
-              "layers": _stacked(layer, cfg.n_layers)}
+              "layers": _stacked(layer_shapes(
+                  cfg, cross=cfg.family == "encdec"), cfg.n_layers)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab_padded, d)
+    if cfg.family == "encdec":
+        # the conv frontend is a stub: inputs arrive as frame embeddings
+        shapes["enc_layers"] = _stacked(layer_shapes(encoder_config(cfg)),
+                                        cfg.enc_layers)
+        shapes["enc_ln_f"] = norm_shapes(d, cfg.norm)
+    if cfg.family == "vlm":
+        shapes["patch_proj"] = (d, d)
     return shapes
 
 
@@ -189,20 +207,121 @@ def ffn(cfg: ModelConfig, x, lp) -> torch.Tensor:
     return glu_mlp(h, lp["ffn"], cfg.act)
 
 
-def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+def cross(cfg: ModelConfig, x, lp, enc_out, *, positions) -> torch.Tensor:
+    """The decoder's cross-attention sublayer on ``norm(x, ln_x)``: k and v
+    from the encoder's output, no rope, not causal.  It takes no ``impl``,
+    so it runs the blockwise path whatever the model's ``impl``, as the
+    reference's does."""
+    h = norm(x, lp["ln_x"], cfg.norm)
+    a, _ = attn_mod.attention(h, lp["xattn"], cfg, positions=positions,
+                              causal=False, x_kv=enc_out, use_rope=False)
+    return a
+
+
+def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl,
+                enc_out=None):
     x = x + mixer(cfg, x, lp, positions=positions, causal=causal, impl=impl)
+    if enc_out is not None:
+        x = x + cross(cfg, x, lp, enc_out, positions=positions)
     if "ffn" in lp:
         x = x + ffn(cfg, x, lp)
     return x
 
 
-def backbone(cfg: ModelConfig, params, x, *, positions, causal=True,
-             impl="blockwise"):
-    """Run the stacked layers over x: [B, S, d]."""
-    for i in range(cfg.n_layers):
-        x = _layer_body(cfg, x, layer_params(params["layers"], i),
-                        positions=positions, causal=causal, impl=impl)
+def unstack(layers: dict, n: int) -> list:
+    """The stacked layer tree as ``n`` per-layer trees of views.  One
+    ``unbind`` per leaf, so that a backward stacks the layers' gradients
+    once rather than adding a full-size gradient per layer."""
+    parts = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in layers.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+# the products ``remat="dots"`` keeps: matrix products without batch
+# dimensions (the reference's ``dots_with_no_batch_dims_saveable``); an
+# ``x @ w`` of a [B, S, d] activation is one ``mm``, the attention's and
+# the experts' batched products are ``bmm`` and are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _checkpointed(fn, mode: str = "full"):
+    """``fn`` recomputed in the backward (the reference's
+    ``jax.checkpoint``): everything but its inputs (``"full"``), or all but
+    the matrix products (``"dots"``)."""
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
+    return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                          **kw)
+
+
+def _run_layers(cfg: ModelConfig, layers: list, x, remat: str, **kw):
+    """x through each of ``layers`` (per-layer trees) with ``_layer_body``,
+    rematerialised as ``remat`` says: per layer (``full``, ``dots``), or
+    the reference's sqrt(L) nesting (``block``: blocks of k layers, the
+    outer level saving only each block's input, the inner each layer's)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: want one of {REMAT}")
+
+    def body(x, lp):
+        return _layer_body(cfg, x, lp, **kw)
+
+    if remat == "none" or not torch.is_grad_enabled():
+        for lp in layers:
+            x = body(x, lp)
+        return x
+    if remat == "block":
+        L = len(layers)
+        k = max(1, int(L ** 0.5))
+        while L % k:
+            k -= 1
+        inner = _checkpointed(body)
+
+        def block(x, *lps):
+            for lp in lps:
+                x = inner(x, lp)
+            return x
+
+        outer = _checkpointed(block)
+        for b in range(L // k):
+            x = outer(x, *layers[b * k:(b + 1) * k])
+        return x
+    body = _checkpointed(body, remat)
+    for lp in layers:
+        x = body(x, lp)
     return x
+
+
+def backbone(cfg: ModelConfig, params, x, *, positions, causal=True,
+             impl="blockwise", enc_out=None, remat: str = "none"):
+    """Run the stacked layers over x: [B, S, d] (the decoder's, with
+    cross-attention to ``enc_out`` for the encoder-decoder)."""
+    return _run_layers(cfg, unstack(params["layers"], cfg.n_layers), x,
+                       remat, positions=positions, causal=causal, impl=impl,
+                       enc_out=enc_out)
+
+
+def encoder(cfg: ModelConfig, params, frames, *, impl="blockwise",
+            remat="none") -> torch.Tensor:
+    """Whisper-style encoder over precomputed frame embeddings [B, F, d]
+    (stub frontend): bidirectional self-attention, which ropes q and k as
+    the reference's does (its ``attention`` defaults to ``use_rope=True``),
+    then ``enc_ln_f``.  Any ``remat`` but ``"none"`` checkpoints each layer
+    whole, as the reference's does."""
+    enc_cfg = encoder_config(cfg)
+    x = frames.to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_layers(enc_cfg, unstack(params["enc_layers"], cfg.enc_layers),
+                    x, "none" if remat == "none" else "full",
+                    positions=positions, causal=False, impl=impl)
+    return norm(x, params["enc_ln_f"], cfg.norm)
 
 
 def _logits(cfg: ModelConfig, h: torch.Tensor, e: torch.Tensor
@@ -214,15 +333,49 @@ def _logits(cfg: ModelConfig, h: torch.Tensor, e: torch.Tensor
     return logits
 
 
-def lm_hidden(cfg: ModelConfig, params, tokens, *,
-              impl="blockwise") -> torch.Tensor:
-    """The final-normed hidden states [B, S, d] whose logits ``lm_loss``
-    scores."""
-    require_ported(cfg)
+def vlm_prefix(px: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The VLM's sequence: the projected patches, then the tokens."""
+    return torch.cat([px, x], dim=1)
+
+
+def text_rows(h: torch.Tensor, n_text: int) -> torch.Tensor:
+    """The VLM's text positions of the final hidden states: the last
+    ``n_text``, which alone the loss scores."""
+    return h[:, h.shape[1] - n_text:]
+
+
+def lm_embed(cfg: ModelConfig, params, tokens, patches=None
+             ) -> torch.Tensor:
+    """The decoder's input [B, S, d] in bf16: the token embeddings, after
+    the projected patch embeddings [B, P, d] for the VLM."""
     x = embed(params["embed"], tokens).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        px = patches.to(torch.bfloat16) @ params["patch_proj"]
+        x = vlm_prefix(px, x)
+    return x
+
+
+def lm_hidden(cfg: ModelConfig, params, tokens, *, impl="blockwise",
+              remat="none", frames=None, patches=None) -> torch.Tensor:
+    """The final-normed hidden states [B, S, d] whose logits ``lm_loss``
+    scores (for the VLM only the text positions).  ``frames`` [B, F, d]
+    (encdec) and ``patches`` [B, P, d] (vlm) are the frontends' stub
+    embeddings."""
+    if cfg.family == "encdec" and frames is None:
+        raise KeyError("frames: the encoder-decoder needs frame embeddings")
+    if cfg.family == "vlm" and patches is None:
+        raise KeyError("patches: the VLM needs patch embeddings")
+    x = lm_embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = backbone(cfg, params, x, positions=positions, causal=True, impl=impl)
-    return norm(x, params["ln_f"], cfg.norm)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = encoder(cfg, params, frames, impl=impl, remat=remat)
+    x = backbone(cfg, params, x, positions=positions, causal=True, impl=impl,
+                 enc_out=enc_out, remat=remat)
+    x = norm(x, params["ln_f"], cfg.norm)
+    if cfg.family == "vlm":                 # loss only over text positions
+        x = text_rows(x, tokens.shape[1])
+    return x
 
 
 def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -231,9 +384,11 @@ def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(cfg: ModelConfig, params, batch, *, impl="blockwise",
-            xent_chunk=512) -> torch.Tensor:
-    """Causal LM loss.  batch: tokens/labels [B, S]."""
-    x = lm_hidden(cfg, params, batch["tokens"], impl=impl)
+            remat="none", xent_chunk=512) -> torch.Tensor:
+    """Causal LM loss.  batch: tokens/labels [B, S] (+ ``frames`` for the
+    encoder-decoder, ``patches`` for the VLM)."""
+    x = lm_hidden(cfg, params, batch["tokens"], impl=impl, remat=remat,
+                  frames=batch.get("frames"), patches=batch.get("patches"))
     unemb = params.get("unembed", params["embed"])
     return chunked_xent(lambda h, e: _logits(cfg, h, e), x, unemb,
                         batch["labels"], chunk=xent_chunk)
@@ -249,7 +404,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     hd] in ``dtype`` (a sliding-window arch keeps only ``window`` slots, a
     ring buffer) for attention, the SSM state [L, batch, H, P, N] in f32
     for the SSM."""
-    require_ported(cfg)
     dev = _device.resolve(device)
     out = {}
     if cfg.has_attention:
@@ -272,9 +426,10 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
     Sliding-window archs index the cache modulo the window (ring buffer);
     the SSM state is O(1).  Returns (logits [B, V] f32, cache); the cache
     is updated in place (see ``attention.attention``; each layer's SSM
-    state is overwritten with its new value).
+    state is overwritten with its new value).  As in the reference, the
+    encoder-decoder's step skips the cross-attention (the encoder is not
+    run) and the VLM's ignores the patches.
     """
-    require_ported(cfg)
     emb = params["embed"]
     x = embed(emb, tokens).to(torch.bfloat16)               # [B, 1, d]
     cache_len = int(cache_len)

@@ -1,0 +1,88 @@
+"""Training step factory: loss -> grads -> AdamW, with optional
+microbatching (sequential gradient accumulation) and the model's remat
+policy (counterpart of ``repro/train/loop.py``).
+
+Eager torch: no compile step stands in for ``jax.jit``.  The gradients are
+taken with ``torch.autograd.grad`` with respect to detached aliases of the
+parameters, so the caller's tensors never require grad, and a leaf the
+loss does not use (a pure SSM's ``ln_ssm``) gets zeros, as ``jax.grad``
+gives.  ``grad_pspecs`` (sharding) is not ported (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import transformer as tf
+from repro_torch.models.model import Model
+from repro_torch.train.optimizer import AdamW, AdamWState
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1        # sequential grad-accumulation steps
+    loss_scale: float = 1.0      # static loss scaling (bf16 rarely needs it)
+
+
+def make_train_step(model: Model, opt: AdamW,
+                    tc: TrainConfig = TrainConfig()):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    metrics), the parameters and moments updated in place
+    (``AdamW.update``); ``metrics``: ``loss``, ``gnorm``, ``lr`` as f32
+    scalar tensors."""
+
+    def value_and_grad(params, batch):
+        names, ps = zip(*tf.leaves(params))
+        alias = [p.detach().requires_grad_(True) for p in ps]
+        with torch.enable_grad():
+            loss = model.loss(tf.unflatten(zip(names, alias)), batch) \
+                * tc.loss_scale
+            gs = torch.autograd.grad(loss, alias, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(ps, gs)]
+
+    def grads_of(params, batch):
+        n = tc.microbatches
+        if n == 1:
+            return value_and_grad(params, batch)
+        for k, x in batch.items():
+            if x.shape[0] % n:
+                raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows does "
+                                 f"not split into {n} microbatches")
+        loss_acc, g_acc = torch.zeros((), dtype=torch.float32), None
+        for i in range(n):
+            mb = {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+                  for k, x in batch.items()}
+            loss, gs = value_and_grad(params, mb)
+            loss_acc = loss_acc.to(loss.device) + loss
+            if g_acc is None:
+                g_acc = [g.float() if g.dtype != torch.float32 else g.clone()
+                         for g in gs]
+            else:
+                for a, g in zip(g_acc, gs):
+                    a.add_(g)             # f32 accumulation
+        inv = 1.0 / n
+        return loss_acc * inv, [g.mul_(inv) for g in g_acc]
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, grads = grads_of(params, batch)
+        if tc.loss_scale != 1.0:
+            grads = [g / tc.loss_scale for g in grads]
+            loss = loss / tc.loss_scale
+        names = [k for k, _ in tf.leaves(params)]
+        params, opt_state, om = opt.update(
+            tf.unflatten(zip(names, grads)), opt_state, params)
+        metrics = {"loss": loss.float(), **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_serve_step(model: Model):
+    """serve_step(params, cache, tokens, cache_len) -> (logits, cache)."""
+
+    def serve_step(params, cache, tokens, cache_len):
+        return model.decode(params, cache, tokens, cache_len)
+
+    return serve_step

@@ -38,7 +38,13 @@ without one).  Torch only, so they also run where JAX is not installed:
 - the scatter engine (``core/simulator_ref.py``) on the card equals
   itself on the CPU on every step program and the gather engine on the
   card, every state leaf but the engines' own encodings, and its masked
-  scatter writes drop on the card as on the CPU (no device-side assert).
+  scatter writes drop on the card as on the CPU (no device-side assert);
+- the kernels refuse autograd on the card (``ops.rmsnorm`` still
+  differentiates); whisper's and llava's smoke configs with 64-wide heads
+  (the encoder's non-causal, ragged self-attention and the decoder's on
+  the tensor-core kernel, not the cross-attention) against
+  ``impl="naive"``; one training step on the card against the CPU, no
+  kernel launched.
 """
 import numpy as np
 import pytest
@@ -680,3 +686,97 @@ def test_scatter_masked_writes_drop_on_card(cuda):
             val.to(cuda), how)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the kernels refuse autograd on the card; the encoder-decoder and the VLM
+# on the tensor-core route; a training step on the card
+# --------------------------------------------------------------------------
+
+def test_kernels_refuse_autograd_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="blockwise"):
+        flash_attention.flash_attention_bhsd(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        flash_attention.flash_attention_bhsd(q, k, v)
+    assert flash_attention.launches == before + 1
+    x = torch.randn(2, 1, 64, 64, generator=g, device=cuda).to(torch.bfloat16)
+    dt = torch.rand(2, 1, 64, generator=g, device=cuda)
+    A = -torch.rand(2, generator=g, device=cuda)
+    B, C = (torch.randn(2, 1, 64, 16, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    with pytest.raises(RuntimeError, match="blockwise"):
+        ssd_scan.ssd_intra_chunk(x, dt.requires_grad_(), A, B, C)
+    xr = torch.randn(4, 64, generator=g, device=cuda)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="ops.rmsnorm"):
+        rmsnorm.rmsnorm_2d(xr, w)
+    ops.rmsnorm(xr, w).sum().backward()
+    assert w.grad is not None
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "llava-next-mistral-7b"])
+def test_encdec_and_vlm_pallas_match_naive_on_card(name, cuda):
+    """64-wide heads: the self-attention of the encoder (non-causal,
+    ragged: 40 frames) and of the decoder take the tensor-core kernel, the
+    cross-attention does not; loss and text logits against naive."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cfg = get_config(name).smoke().scaled(
+        head_dim=64, audio_frames_default=40, vlm_patches_default=24)
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 72))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    extra = {"encdec": ("frames", cfg.audio_frames_default),
+             "vlm": ("patches", cfg.vlm_patches_default)}[cfg.family]
+    batch[extra[0]] = torch.from_numpy(rng.standard_normal(
+        (2, extra[1], cfg.d_model)).astype(np.float32)).to(cuda)
+    layers = cfg.n_layers + (cfg.enc_layers if cfg.family == "encdec"
+                             else 0)
+    before = flash_attention.tc_launches
+    with torch.no_grad():
+        got = Model(cfg, impl="pallas").loss(params, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.tc_launches == before + layers
+        want = Model(cfg, impl="naive").loss(params, batch)
+        np.testing.assert_allclose(float(got), float(want), rtol=5e-4)
+        kw = {extra[0]: batch[extra[0]]}
+        lg = {impl: tf.lm_logits(cfg, params, tf.lm_hidden(
+            cfg, params, toks, impl=impl, **kw)).float().cpu().numpy()
+            for impl in ("pallas", "naive")}
+    np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
+                               atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` of hymba's smoke config from the same
+    weights on the card and on the CPU: loss and gradient norm (bf16
+    activations summed in other orders: rel 5e-4 and 1e-2), and no kernel
+    of this repository launched."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamW
+    cfg = get_config("hymba-1.5b").smoke()
+    model = Model(cfg, xent_chunk=16)
+    opt = AdamW(lr=1e-3)
+    batch = model.make_inputs(ShapeSpec("t", 32, 4, "train"),
+                              torch.Generator().manual_seed(1))
+    out = {}
+    counts = (flash_attention.launches, ssd_scan.launches, rmsnorm.launches)
+    for dev in ("cpu", cuda):
+        params = carry.params_from_jax(carry.numpy_params(cfg, 0), device=dev)
+        _, _, m = make_train_step(model, opt)(
+            params, opt.init(params), {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = {k: float(v) for k, v in m.items()}
+    assert (flash_attention.launches, ssd_scan.launches,
+            rmsnorm.launches) == counts
+    a, b = out["cpu"], out[str(cuda)]
+    assert b["loss"] == pytest.approx(a["loss"], rel=5e-4)
+    assert b["gnorm"] == pytest.approx(a["gnorm"], rel=1e-2)
+    assert b["lr"] == a["lr"]

@@ -150,3 +150,25 @@ def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+def test_no_port_module_nor_the_smoke_imports_jax_or_ml_dtypes():
+    """Every module of the port, and ``chip_smoke.py``, imported in a
+    fresh interpreter: none of them brings in ``jax``, ``ml_dtypes`` (the
+    card's machine has neither) or anything of the reference."""
+    code = ("import importlib, pkgutil, sys, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "sys.path.insert(0, '.')\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print(len([m for m in sys.modules "
+            "if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                         cwd=ROOT, timeout=300, capture_output=True,
+                         text=True)
+    assert int(out.stdout.split()[-1]) > 40

@@ -92,10 +92,15 @@ def test_configs_equal_the_reference():
                     tc, base.SHAPES[sname])
 
 
-def test_other_families_raise_not_implemented():
+def test_encdec_and_vlm_build_the_reference_tree():
+    """The encoder-decoder and VLM families build the reference's
+    parameter tree (``test_torch_encdec_vlm.py`` holds their forward,
+    decode and training)."""
     for name in ("whisper-tiny", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            Model(base.get_config(name).smoke()).param_shapes()
+        jc, tc = jbase.get_config(name).smoke(), base.get_config(name).smoke()
+        want = {jax.tree_util.keystr(k): tuple(s.shape) for k, s in
+                jax.tree_util.tree_flatten_with_path(jtf.param_specs(jc))[0]}
+        assert dict(tf.leaves(Model(tc).param_shapes())) == want
 
 
 # --------------------------------------------------------------------------

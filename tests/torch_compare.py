@@ -221,3 +221,153 @@ def port_moe_probe():
         yield calls
     finally:
         moe.dispatch_plan = real
+
+
+# --------------------------------------------------------------------------
+# training: one step of both packages from one carried (params, opt_state)
+
+TRAIN_LOSS_RTOL = 5e-4     # Model.loss: flipped bf16 roundings, averaged
+TRAIN_GNORM_RTOL = 1e-3    # the global norm of every gradient leaf
+TRAIN_SHARE = 0.02         # entries whose update disagrees
+TRAIN_ENTRY_REL = 0.1      # an entry agrees within 10% of its move ...
+TRAIN_ENTRY_ULPS = 2.0 ** -7   # ... plus two bf16 ulps of its value
+TRAIN_MOVE_RTOL = 1e-2     # per leaf mean |p - p0|
+TRAIN_MOMENT_REL = 2.0 ** -5   # m, v: of each leaf's largest entry
+
+
+def train_inputs(cfg, B: int, S: int, seed: int = 5) -> dict:
+    """A numpy batch of ``B`` x ``S`` tokens and labels with the frontend
+    stubs' embeddings of ``cfg``'s family (N(0, 1) f32)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (B, cfg.audio_frames_default, cfg.d_model), dtype=np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.standard_normal(
+            (B, cfg.vlm_patches_default, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def mid_run_state(params_np: dict, seed: int = 6, step: int = 3):
+    """A mid-run AdamW state for ``params_np`` (``{keystr: array}``): m
+    ~ 1e-3 N(0, 1), v ~ 1e-5 |N(0, 1)|, as ``(step, m, v)`` dicts."""
+    rng = np.random.default_rng(seed)
+    m = {k: (rng.standard_normal(a.shape) * 1e-3).astype(np.float32)
+         for k, a in params_np.items()}
+    v = {k: (np.abs(rng.standard_normal(a.shape)) * 1e-5).astype(np.float32)
+         for k, a in params_np.items()}
+    return step, m, v
+
+
+def assert_step_close(p0: dict, got: dict, want: dict, got_m: dict,
+                      want_m: dict, got_v: dict, want_v: dict) -> None:
+    """One training step's parameters and moments (``{keystr: f32
+    array}``) of the port against the reference's, leaf by leaf: for bf16
+    leaves the share of entries whose value disagrees by more than 10% of
+    its move plus two bf16 ulps (a gradient entry near zero, whose sign
+    two summation orders may decide differently, moves the other way), for
+    the f32 leaves each entry within 1e-2 of the leaf's largest move; the
+    mean |p - p0|; the moments within 2^-5 of the leaf's largest entry."""
+    from repro_torch.models.transformer import is_f32_leaf
+    assert set(got) == set(want) == set(p0)
+    for k in want:
+        a, b, a0 = got[k], want[k], p0[k]
+        moved = np.abs(b - a0)
+        if is_f32_leaf(k):
+            assert np.abs(a - b).max() <= 1e-2 * moved.max(), k
+        else:
+            bad = np.abs(a - b) > TRAIN_ENTRY_REL * moved \
+                + TRAIN_ENTRY_ULPS * np.abs(b)
+            share = float(np.mean(bad))
+            assert share <= TRAIN_SHARE, (k, share)
+        ma, mb = float(np.abs(a - a0).mean()), float(moved.mean())
+        assert abs(ma - mb) <= TRAIN_MOVE_RTOL * mb + 1e-12, (k, ma, mb)
+        for x, y, what in ((got_m[k], want_m[k], "m"),
+                           (got_v[k], want_v[k], "v")):
+            assert np.abs(x - y).max() <= TRAIN_MOMENT_REL \
+                * np.abs(y).max(), (k, what)
+
+
+def train_step_pair(name: str, *, B: int = 2, S: int = 16,
+                    microbatches: int = 1, xent_chunk: int = 16) -> dict:
+    """One ``make_train_step`` of the reference (op by op) and of the port
+    (on the CPU) on ``name``'s smoke config, from one carried ``(params,
+    opt_state)``: ``carry.numpy_params`` weights and a mid-run AdamW state
+    (``mid_run_state``, carried with ``carry.opt_state_from_numpy``).
+    Returns both metrics and ``{keystr: f32 array}`` trees."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import get_config as jconfig
+    from repro.models.model import Model as JModel
+    from repro.train import loop as jloop
+    from repro.train import optimizer as jopt
+    from repro_torch import carry
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train import loop, optimizer
+
+    cfg = get_config(name).smoke()
+    npp = carry.numpy_params(cfg, 0)
+    flat = dict(tf.leaves(npp))
+    step, m, v = mid_run_state(flat)
+    batch = train_inputs(cfg, B, S)
+    jp = jax.tree_util.tree_map_with_path(
+        lambda k, a: jnp.asarray(a, jnp.float32 if tf.is_f32_leaf(
+            jax.tree_util.keystr(k)) else jnp.bfloat16), npp)
+    jst = jopt.AdamWState(step=jnp.int32(step),
+                          m=tf.unflatten((k, jnp.asarray(a))
+                                         for k, a in m.items()),
+                          v=tf.unflatten((k, jnp.asarray(a))
+                                         for k, a in v.items()))
+    sched = dict(peak=3e-3, warmup=5, total=20)
+    jfn = jloop.make_train_step(
+        JModel(jconfig(name).smoke(), xent_chunk=xent_chunk),
+        jopt.AdamW(lr=jopt.cosine_schedule(**sched)),
+        jloop.TrainConfig(microbatches=microbatches))
+    with jax.disable_jit():
+        jp2, jst2, jm = jfn(jp, jst, {k: jnp.asarray(a)
+                                      for k, a in batch.items()})
+
+    tp = carry.params_from_jax(npp, device="cpu")
+    tst = carry.opt_state_from_numpy(step, tf.unflatten(m.items()),
+                                     tf.unflatten(v.items()), device="cpu")
+    tfn = loop.make_train_step(
+        Model(cfg, xent_chunk=xent_chunk),
+        optimizer.AdamW(lr=optimizer.cosine_schedule(**sched)),
+        loop.TrainConfig(microbatches=microbatches))
+    tp2, tst2, tm = tfn(tp, tst, {k: torch.from_numpy(a)
+                                  for k, a in batch.items()})
+
+    def jflat(tree):
+        return {jax.tree_util.keystr(k): np.asarray(a, np.float32)
+                for k, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    def tflat(tree):
+        return {k: a.float().numpy() for k, a in tf.leaves(tree)}
+
+    p0 = {k: np.asarray(jnp.asarray(a, jnp.float32 if tf.is_f32_leaf(k)
+                                    else jnp.bfloat16), np.float32)
+          for k, a in flat.items()}
+    return dict(p0=p0, jax_metrics={k: float(x) for k, x in jm.items()},
+                port_metrics={k: float(x) for k, x in tm.items()},
+                jax_params=jflat(jp2), port_params=tflat(tp2),
+                jax_m=jflat(jst2.m), port_m=tflat(tst2.m),
+                jax_v=jflat(jst2.v), port_v=tflat(tst2.v),
+                jax_step=int(jst2.step), port_step=tst2.step)
+
+
+def assert_train_pair_close(r: dict) -> None:
+    """``train_step_pair``'s two steps agree: ``loss`` (rel 5e-4),
+    ``gnorm`` (rel 1e-3), ``lr`` (rel 1e-6), the step count, and every
+    leaf (``assert_step_close``)."""
+    jm, tm = r["jax_metrics"], r["port_metrics"]
+    for k, rtol in (("loss", TRAIN_LOSS_RTOL), ("gnorm", TRAIN_GNORM_RTOL),
+                    ("lr", REL)):
+        assert abs(tm[k] - jm[k]) <= rtol * abs(jm[k]), (k, tm[k], jm[k])
+    assert r["port_step"] == r["jax_step"]
+    assert_step_close(r["p0"], r["port_params"], r["jax_params"],
+                      r["port_m"], r["jax_m"], r["port_v"], r["jax_v"])

@@ -1,6 +1,7 @@
 """The JAX package's run of one model at full width and a few layers, for
-the port's card phases: the body of ``make_hymba_reference.py`` and
-``make_mixtral_reference.py``.
+the port's card phases: the body of ``make_hymba_reference.py``,
+``make_mixtral_reference.py``, ``make_whisper_reference.py`` and
+``make_llava_reference.py``.
 
 The weights are ``repro_torch.carry.numpy_params(cfg, seed)`` (shared by
 both packages: the f32 leaves as f32, the rest as bf16), drawn and cast
@@ -9,7 +10,10 @@ keeps every bf16 rounding the program writes; compiled, XLA:CPU keeps some
 bf16 intermediates in f32.
 
 A fixture records:
-- ``loss``: ``Model.loss`` on one fixed batch (tokens and labels stored);
+- ``loss``: ``Model.loss`` on one fixed batch (tokens and labels stored;
+  the encoder-decoder's frame embeddings and the VLM's patch embeddings,
+  ``extras``, are N(0, 1) in f32 from ``np.random.default_rng(seed)``,
+  stored as the seed and the shape: ``stub_inputs`` draws them);
 - ``forward``: the top-5 logit ids and values of that forward at
   ``positions``;
 - ``routing`` (MoE models): for each layer of the loss's forward, the
@@ -49,6 +53,40 @@ from torch_compare import jax_moe_probe  # noqa: E402
 BATCH_SEED = 1
 PROMPTS_SEED, SLOTS, PROMPT_LEN, MAX_NEW, MAX_SEQ = 2, 2, 8, 8, 32
 TOPK = 5
+EXTRAS_SEED = 4
+
+
+def stub_inputs(cfg, B: int, seed: int = EXTRAS_SEED) -> dict:
+    """The frontend stubs' inputs of a batch of ``B``: ``{name: (shape,
+    array)}``, frames for the encoder-decoder, patches for the VLM."""
+    shape = {"encdec": ("frames", cfg.audio_frames_default),
+             "vlm": ("patches", cfg.vlm_patches_default)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    s = (B, n, cfg.d_model)
+    return {name: (list(s), np.random.default_rng(seed).standard_normal(
+        s, dtype=np.float32))}
+
+
+def jax_hidden(cfg, params, batch, impl):
+    """The reference's ``lm_loss`` up to its logits: the final-normed
+    hidden states of the text positions."""
+    x = params["embed"][batch["tokens"]].astype(jnp.bfloat16)
+    if cfg.family == "vlm":
+        px = jnp.einsum("bpd,de->bpe", batch["patches"].astype(jnp.bfloat16),
+                        params["patch_proj"])
+        x = jnp.concatenate([px, x], axis=1)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = jtf.encoder(cfg, params,
+                              batch["frames"].astype(jnp.bfloat16), impl=impl)
+    x = jtf.backbone(cfg, params, x, positions=jnp.arange(x.shape[1]),
+                     causal=True, impl=impl, enc_out=enc_out)
+    x = norm(x, params["ln_f"], cfg.norm)
+    if cfg.family == "vlm":
+        x = x[:, -batch["tokens"].shape[1]:]
+    return x
 
 
 def write(out: pathlib.Path, arch: str, layers: int, seed: int, B: int,
@@ -67,19 +105,15 @@ def write(out: pathlib.Path, arch: str, layers: int, seed: int, B: int,
     tokens = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
     batch = {"tokens": jnp.asarray(tokens[:, :-1]),
              "labels": jnp.asarray(tokens[:, 1:])}
+    extras = stub_inputs(cfg, B)
+    batch.update({k: jnp.asarray(a) for k, (_, a) in extras.items()})
     unembed = params.get("unembed", params["embed"])
-
-    def hidden(params, toks):                 # lm_loss up to its logits
-        x = params["embed"][toks].astype(jnp.bfloat16)
-        x = jtf.backbone(cfg, params, x, positions=jnp.arange(S),
-                         causal=True, impl="naive")
-        return norm(x, params["ln_f"], cfg.norm)
 
     with jax.disable_jit():
         with jax_moe_probe() as calls:
             loss = float(model.loss(params, batch))
         print(f"loss {loss!r} ({time.perf_counter() - t0:.1f} s)", flush=True)
-        h = hidden(params, batch["tokens"])[0, jnp.asarray(positions)]
+        h = jax_hidden(cfg, params, batch, "naive")[0, jnp.asarray(positions)]
         logits = jnp.einsum("sd,vd->sv", h, unembed).astype(jnp.float32)
         fvals, fids = jax.lax.top_k(logits[:, :cfg.vocab], TOPK)
         print(f"forward ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -113,6 +147,9 @@ def write(out: pathlib.Path, arch: str, layers: int, seed: int, B: int,
            "loss_batch": {"tokens": tokens[:, :-1].tolist(),
                           "labels": tokens[:, 1:].tolist()},
            "loss": loss,
+           **({"extras": {"seed": EXTRAS_SEED,
+                          **{k: s for k, (s, _) in extras.items()}}}
+              if extras else {}),
            "forward": {"positions": positions,
                        "top_ids": np.asarray(fids).tolist(),
                        "top_vals": np.asarray(fvals).tolist()},
