@@ -215,14 +215,31 @@ order in which they run is given after the list):
     ``CheckpointManager``: a step failing once at step 3 restores step 2
     and replays, against an uninterrupted run; a flipped byte in the
     newest checkpoint is skipped); then ``launch/train.py`` at full size,
-    12 steps, its losses, step ms and tokens/s.
+    12 steps, its losses, step ms and tokens/s;
+25. compressed data parallelism (``train/grad_compress.py``) on a process
+    group of one rank (NCCL) and ``make_host_mesh()``: hymba-1.5b at full
+    size, ``launch/train.py``'s defaults (B 8 x S 256, cosine lr peak
+    3e-3, ``impl="blockwise"``), ``DP_STEPS`` steps of
+    ``make_dp_train_step`` with int8 error feedback: the loss falls, no
+    kernel of this repository launches, and the step ms, peak memory and
+    ``wire_bytes_per_step`` (int8 and bf16) print beside phase 24's
+    uncompressed step; on one step's gradients (with the carried
+    residual) the card's ``quantize`` codes, scales and residuals equal
+    the CPU's bit for bit; ``hierarchical_grad_reduce`` on a (1, 1)
+    ("pod", "data") mesh returns its input unchanged;
+26. the GPipe pipeline (``train/pipeline.py``) with one stage and 4
+    microbatches on the same process group: hymba-1.5b at full width and
+    ``PP_LAYERS`` layers, B 8 x S 256, loss and gradients against
+    ``Model.loss`` on the card (``PP_TOL``), no kernel launched, the
+    times of both.  Schedules of more than one stage need more than one
+    card: the gloo tests hold them (``tests/test_torch_pipeline.py``).
 
 Phase 15 (fig9) runs in a second process on the same card (``python3
 chip_smoke.py --phase fig9``, ``Fig9Apart``): one host thread's dispatch
 bounds it for 6-10 minutes while the card idles.  This process runs
 phases 1-11, then 12-14 and 20-21 (the other host-bound simulator
 phases) beside fig9, prints fig9's output when its process ends
-(failing if it failed), then runs 16-19 and 22-24 alone on the card.
+(failing if it failed), then runs 16-19 and 22-26 alone on the card.
 So the walls of phases 12-15 and 20-21 are taken beside another
 process; every kernel and model timing is taken with the card to
 itself.
@@ -647,17 +664,18 @@ def layer_errors(model, params, batch) -> list:
 def moe_routing():
     """Every MoE layer call inside the block: its router probabilities
     and top-k experts, from wrapped ``moe.top_k`` and ``moe.dispatch_plan``
-    (``{"probs": [T, E], "experts": [T, k]}`` per call)."""
+    (``{"probs": [T, E], "experts": [T, k]}`` per call, the dispatch
+    groups' tokens in turn)."""
     from repro_torch.models import moe
     calls = []
     real_top_k, real_plan = moe.top_k, moe.dispatch_plan
 
     def top_k(probs, k):
-        calls.append({"probs": probs})
+        calls.append({"probs": probs.reshape(-1, probs.shape[-1])})
         return real_top_k(probs, k)
 
     def plan(experts, n_experts, cap):
-        calls[-1]["experts"] = experts
+        calls[-1]["experts"] = experts.reshape(-1, experts.shape[-1])
         return real_plan(experts, n_experts, cap)
 
     with swapped(moe, "top_k", top_k), swapped(moe, "dispatch_plan", plan):
@@ -2712,6 +2730,196 @@ def phase_train(dev, kmods, smi) -> dict:
     return dict(fixture=rec, full=full)
 
 
+DP_STEPS = 8                 # phase 25: cosine warm-up 5, then falling
+PP_LAYERS = 32               # phase 26: hymba-1.5b at full depth
+PP_MICRO = 4
+# phase 26, the one-stage pipeline against ``Model.loss`` on the card:
+# the same layers run on microbatches of 2 rows instead of 8, so cuBLAS
+# may pick other kernels (other sums, other bf16 roundings), and autograd
+# adds each leaf's four microbatch gradients in bf16; the loss to rel
+# ``loss``, each gradient leaf to ``grad`` in relative L2 norm
+PP_TOL = dict(loss=1e-3, grad=5e-2)
+
+
+@contextlib.contextmanager
+def process_group(dev):
+    """A process group of one rank on the card (NCCL), left on exit."""
+    from repro_torch.launch import mesh
+    mesh.init_distributed(device=dev)
+    try:
+        yield mesh
+    finally:
+        mesh.shutdown()
+
+
+def quantize_matches_cpu(grads: list, err: list) -> dict:
+    """``quantize`` and the residual of ``g + err`` for every leaf on the
+    card and on the CPU: the leaves whose codes, scale or residual
+    differ in any bit."""
+    import torch
+    from repro_torch.train import grad_compress as gc
+    bad, n = [], 0
+    for i, (g, e) in enumerate(zip(grads, err)):
+        gf = g.float() + e
+        q, s = gc.quantize(gf)
+        r = gc._residual(gf, q, s)
+        gc_, q_, s_, r_ = (x.cpu() for x in (gf, q, s, r))
+        cq, cs = gc.quantize(gc_)
+        cr = gc._residual(gc_, cq, cs)
+        n += gf.numel()
+        if not (torch.equal(cq, q_) and torch.equal(cs, s_)
+                and torch.equal(cr, r_)):
+            bad.append(i)
+    return {"leaves_differing": bad, "values": n}
+
+
+def phase_dp(dev, kmods, smi, step24_ms: float) -> dict:
+    """Phase 25: ``make_dp_train_step`` with int8 error feedback on a
+    one-rank NCCL group, hymba-1.5b at full size."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.interconnect import scheduler
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    t0 = time.perf_counter()
+    B, S, steps = 8, 256, DP_STEPS
+    cfg = get_config("hymba-1.5b")
+    with process_group(dev) as M:
+        host = M.make_host_mesh(device=dev)
+        model = Model(cfg, xent_chunk=128)
+        opt = AdamW(lr=cosine_schedule(3e-3, warmup=max(steps // 20, 5),
+                                       total=steps))
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        st, err = opt.init(params), gc.init_error(params)
+        cc = gc.CompressionConfig()
+        fn = gc.make_dp_train_step(model, opt, host, cc, device=dev)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B))
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_s = [], []
+        zero(kmods)
+        for i in range(steps):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(i).items()}
+            t = time.perf_counter()
+            params, st, err, m = fn(params, st, err, b)
+            losses.append(float(m["loss"]))          # waits for the step
+            step_s.append(time.perf_counter() - t)
+        path = counts(kmods)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        expect_counts("compressed DP step", path, {})
+        if not (all(map(math.isfinite, losses))
+                and max(losses[-2:]) < losses[0]):
+            raise AssertionError(f"compressed DP losses {losses}")
+        # one step's gradients with the carried residual: card == CPU
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(steps).items()}
+        _, grads = value_and_grad(model.loss, params, b)
+        t = time.perf_counter()
+        quant = quantize_matches_cpu(grads, [e for _, e in tf.leaves(err)])
+        quant["seconds"] = time.perf_counter() - t
+        if quant["leaves_differing"]:
+            raise AssertionError(f"quantize on the card != CPU: {quant}")
+        pd = M.make_mesh((1, 1), ("pod", "data"), device=dev)
+        tree = tf.unflatten(zip((k for k, _ in tf.leaves(params)), grads))
+        same = [k for (k, g), (_, h) in zip(
+            tf.leaves(tree), tf.leaves(scheduler.hierarchical_grad_reduce(
+                tree, mesh=pd))) if not torch.equal(g, h)]
+        if same:
+            raise AssertionError(f"hierarchical_grad_reduce on (1, 1) "
+                                 f"changed {same}")
+        warm = step_s[2:]
+        rec = dict(arch="hymba-1.5b", layers=cfg.n_layers, batch=B, seq=S,
+                   steps=steps, losses=losses,
+                   step_ms=[1e3 * x for x in step_s],
+                   step_ms_mean_after_2=1e3 * sum(warm) / len(warm),
+                   uncompressed_step_ms_phase24=step24_ms,
+                   tokens_per_s=B * S * len(warm) / sum(warm),
+                   peak_gib=peak,
+                   wire_bytes_int8=gc.wire_bytes_per_step(params, cc),
+                   wire_bytes_bf16=gc.wire_bytes_per_step(
+                       params, gc.CompressionConfig(enabled=False)),
+                   quantize_card_vs_cpu=quant,
+                   hierarchical_identity=True,
+                   kernel_launches_on_path=path,
+                   wall_s=time.perf_counter() - t0, power=nvidia_smi())
+        del params, st, err, grads, tree
+    torch.cuda.empty_cache()
+    say("dp", json.dumps(rec))
+    return rec
+
+
+def pp_errors(pl, pg, sl, sg) -> dict:
+    """The pipeline's loss and gradients against the sequential ones: the
+    loss's relative error and each leaf's relative L2 error, with their
+    ratios to ``PP_TOL``."""
+    g = [float((a.float() - b.float()).norm() / b.float().norm())
+         for a, b in zip(pg, sg)]
+    loss = abs(float(pl) - float(sl)) / abs(float(sl))
+    return dict(loss_rel=loss, grad_rel_max=max(g),
+                ratio=max(loss / PP_TOL["loss"], max(g) / PP_TOL["grad"]))
+
+
+def phase_pp(dev, kmods, smi) -> dict:
+    """Phase 26: ``make_pp_loss`` with one stage and ``PP_MICRO``
+    microbatches against ``Model.loss``, hymba-1.5b at full width."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.train import pipeline
+    from repro_torch.train.loop import value_and_grad
+    t0 = time.perf_counter()
+    B, S = 8, 256
+    cfg = get_config("hymba-1.5b").scaled(n_layers=PP_LAYERS)
+    with process_group(dev) as M:
+        host = M.make_host_mesh(device=dev)
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+        ).batch(0).items()}
+        loss_fn = pipeline.make_pp_loss(cfg, host, n_stages=1,
+                                        n_micro=PP_MICRO, axis="model",
+                                        xent_chunk=128, device=dev)
+        seq = Model(cfg, xent_chunk=128).loss
+        times = {"pp": [], "seq": []}
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero(kmods)
+        for _ in range(3):
+            for name, fn in (("pp", loss_fn), ("seq", seq)):
+                t = time.perf_counter()
+                out = value_and_grad(fn, params, b)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t)
+                if name == "pp":
+                    pl, pg = out
+                else:
+                    sl, sg = out
+                del out
+        path = counts(kmods)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        expect_counts("pipeline loss", path, {})
+        errs = pp_errors(pl, pg, sl, sg)
+        rec = dict(arch="hymba-1.5b", layers=PP_LAYERS, batch=B, seq=S,
+                   stages=1, micro=PP_MICRO, loss=float(pl),
+                   seq_loss=float(sl), errors=errs, tol=PP_TOL,
+                   pp_ms=[1e3 * x for x in times["pp"]],
+                   seq_ms=[1e3 * x for x in times["seq"]],
+                   peak_gib=peak, kernel_launches_on_path=path,
+                   wall_s=time.perf_counter() - t0, power=nvidia_smi())
+        del params, pg, sg
+    torch.cuda.empty_cache()
+    say("pp", json.dumps(rec))
+    if not errs["ratio"] <= 1.0:
+        raise AssertionError(f"pipeline vs Model.loss: {errs}")
+    return rec
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2898,7 +3106,10 @@ def main(argv=None) -> int:
     # the encoder-decoder and the VLM, and the training path (no kernel
     # launches on it)
     paths.update(phase_encdec_vlm(dev, kmods, smi))
-    phase_train(dev, kmods, smi)
+    train = phase_train(dev, kmods, smi)
+    # the distributed training path on a process group of one rank
+    phase_dp(dev, kmods, smi, train["full"]["step_ms_mean_after_2"])
+    phase_pp(dev, kmods, smi)
 
     granite, mamba, hy = ("granite-8b forward", "mamba2-1.3b forward",
                           "hymba-1.5b forward")

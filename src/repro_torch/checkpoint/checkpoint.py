@@ -209,9 +209,15 @@ class CheckpointManager:
         except Exception:
             return False
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """Restore into the structure of ``like`` (its leaves' devices;
-        the stored dtypes)."""
+        the stored dtypes).
+
+        Elastic rescale: with ``shardings`` (a tree like ``like`` of
+        ``sharding.specs.NamedSharding``s, or ``None`` leaves), each stored
+        global array is placed on the mesh its sharding names, as a
+        DTensor holding this rank's block — restoring a checkpoint written
+        on one device onto a 2 x 2 mesh (or back) is the same code path."""
         d = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
@@ -224,4 +230,10 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{shape} vs {meta['shape']}")
             out.append(_to_leaf(arr, meta["dtype"], leaf))
+        if shardings is not None:
+            from repro_torch.sharding.specs import NamedSharding, distribute
+            sh = [v for _, v in leaf_paths(shardings)]
+            out = [distribute(t, s.spec, s.mesh)
+                   if isinstance(s, NamedSharding) else t
+                   for t, s in zip(out, sh)]
         return _rebuild(like, iter(out))

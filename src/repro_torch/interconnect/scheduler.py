@@ -10,9 +10,9 @@ latency-optimal, bandwidth O(g * bytes)) vs hierarchical two-level schedules
 one stream across the slow domain).
 
 The cost functions and ``choose_schedule`` of
-``repro.interconnect.scheduler``, copied.  Its ``hierarchical_psum`` and
-``hierarchical_grad_reduce`` (collectives of the JAX mesh) have no
-counterpart here yet (ROADMAP A10).
+``repro.interconnect.scheduler``, copied; its two-level schedule
+(``hierarchical_psum``, ``hierarchical_grad_reduce``) as
+``torch.distributed`` all-reduces over a ``DeviceMesh``'s axis groups.
 """
 from __future__ import annotations
 
@@ -55,3 +55,35 @@ def choose_schedule(bytes_: float, g_fast: int, g_slow: int = 1) -> str:
     hier = hierarchical_cost(bytes_, g_fast, g_slow) if g_slow > 1 else flat
     costs = {"ring": flat, "oneshot": ones, "hierarchical": hier}
     return min(costs, key=costs.get)
+
+
+# ---- the two-level (pod-aware) schedule over a DeviceMesh ----------------
+
+def psum(x, axes, *, mesh):
+    """The sum of ``x`` over this rank's groups along ``axes`` of
+    ``mesh``, the last axis first, as a new tensor (``x`` is left as it
+    was)."""
+    import torch.distributed as dist
+    out = x.clone()
+    for a in reversed(tuple(axes)):
+        dist.all_reduce(out, group=mesh.get_group(a))
+    return out
+
+
+def hierarchical_psum(x, fast_axis: str, slow_axis: str, *, mesh):
+    """Two-level all-reduce: a sum over this rank's group along
+    ``fast_axis`` (inside the pod), then along ``slow_axis`` (across
+    pods).  Equivalent to one sum over both axes, but keeps the slow-axis
+    message count at one stream per pod pair — the WI-per-cluster
+    pattern."""
+    return psum(x, (slow_axis, fast_axis), mesh=mesh)
+
+
+def hierarchical_grad_reduce(grads, fast_axis: str = "data",
+                             slow_axis: str = "pod", *, mesh):
+    """``hierarchical_psum`` of every leaf of a (nested dict) tree."""
+    if isinstance(grads, dict):
+        return {k: hierarchical_grad_reduce(v, fast_axis, slow_axis,
+                                            mesh=mesh)
+                for k, v in grads.items()}
+    return hierarchical_psum(grads, fast_axis, slow_axis, mesh=mesh)

@@ -1,9 +1,12 @@
 """End-to-end training driver (counterpart of ``repro/launch/train.py``).
 
-One device (the mesh is ROADMAP A10), eager torch (no compile step stands
-in for ``jax.jit``).  With ``--ckpt-dir`` the step loop runs under the
-fault-tolerance supervisor: periodic async checkpoints, restore on
-failure, straggler logging.
+One device, as the reference's driver, and eager torch (no compile step
+stands in for ``jax.jit``); the data-parallel trainer with compressed
+gradients (``train/grad_compress.py``) and the pipeline
+(``train/pipeline.py``) run on a process group (``launch/mesh.py``).
+With ``--ckpt-dir`` the step loop runs under the fault-tolerance
+supervisor: periodic async checkpoints, restore on failure, straggler
+logging.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \

@@ -10,8 +10,9 @@ products, the reference's three ``impl`` names:
                   ``kernels.ops.flash_attention``).  The name is the
                   reference's; on a CPU tensor the kernel's wrapper takes its
                   plain version.
-The reference's sharding arguments (``sp_specs``) are not ported: the port
-runs on one device until the sharding slice (ROADMAP A10).
+``sp_specs`` (sequence-parallel attention) pins q, k and v to their specs
+with ``layers.constrain``: a no-op on plain tensors, a redistribute on
+DTensors.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import constrain, rope
 
 NEG = -1e30
 
@@ -115,7 +116,7 @@ def attn_shapes(d: int, H: int, Hkv: int, hd: int) -> dict:
 
 def attention(x, p, cfg, *, positions, causal=True, impl="blockwise",
               kv_cache: Optional[dict] = None, cache_slot=None,
-              valid_len=None, x_kv=None, use_rope=True):
+              valid_len=None, x_kv=None, use_rope=True, sp_specs=None):
     """Full attention block.
 
     Decode mode (``kv_cache`` given): writes this step's roped k/v into
@@ -128,7 +129,9 @@ def attention(x, p, cfg, *, positions, causal=True, impl="blockwise",
 
     ``x_kv`` makes it cross-attention: k and v are projected from ``x_kv``
     (the encoder's output), and only q is roped.  ``use_rope=False`` ropes
-    neither."""
+    neither.  ``sp_specs`` ``(q_spec, kv_spec)``: outside decode, q, k and
+    v are pinned to them (the reference's sequence-parallel attention:
+    q's sequence over "model" where the head count does not divide it)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     src = x if x_kv is None else x_kv
@@ -139,6 +142,10 @@ def attention(x, p, cfg, *, positions, causal=True, impl="blockwise",
         q = rope(q, positions, cfg.rope_theta)
         if x_kv is None:
             k = rope(k, positions, cfg.rope_theta)
+    if sp_specs is not None and kv_cache is None:
+        q = constrain(q, sp_specs[0])
+        k = constrain(k, sp_specs[1])
+        v = constrain(v, sp_specs[1])
 
     new_cache = None
     if kv_cache is not None:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.specs import constrain  # noqa: F401  (re-export)
+
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:

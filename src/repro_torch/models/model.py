@@ -2,15 +2,18 @@
 ``repro/models/model.py``).
 
 ``Model(cfg)`` wraps the functional pieces in transformer.py and provides:
-  - param_shapes() / init(generator)  parameters (shapes / concrete)
+  - param_shapes() / param_specs() / init(generator)
+                                      parameters (shapes / meta tensors /
+                                      concrete)
   - loss(params, batch)               LM loss (full-sequence forward)
   - init_decode_state() / decode(params, cache, tokens, cache_len)
   - input_specs(shape) / make_inputs(shape, generator)
                                       inputs of one step of ``shape.kind``,
                                       the modality-frontend stubs included
 The reference's sharding fields (``act_spec``, ``sp_specs``,
-``moe_specs``, ``fsdp_gather_specs``) are not ported: the port runs on one
-device (ROADMAP A10 for the mesh).
+``moe_specs``, ``fsdp_gather_specs``) are passed down to the layers, which
+pin activations and parameters to them with ``layers.constrain``
+(identity on plain tensors, a redistribute on DTensors).
 """
 from __future__ import annotations
 
@@ -33,23 +36,38 @@ class Model:
     remat: str = "none"           # none|dots|full|block
     xent_chunk: int = 512
     param_dtype: Any = torch.bfloat16
+    act_spec: Any = None          # PartitionSpec for [B,S,d] activations
+    sp_specs: Any = None          # (q_spec, kv_spec) seq-parallel attention
+    moe_specs: Any = None         # (buf_spec, tok_spec, groups) dispatch
+    fsdp_gather_specs: Any = None  # per-layer gathered param specs
 
     def param_shapes(self) -> dict:
         return tf.param_shapes(self.cfg)
+
+    def param_specs(self) -> dict:
+        return tf.param_specs(self.cfg, self.param_dtype)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         return tf.init_params(self.cfg, generator, self.param_dtype, device)
 
     def loss(self, params, batch) -> torch.Tensor:
         return tf.lm_loss(self.cfg, params, batch, impl=self.impl,
-                          remat=self.remat, xent_chunk=self.xent_chunk)
+                          remat=self.remat, xent_chunk=self.xent_chunk,
+                          act_spec=self.act_spec, sp_specs=self.sp_specs,
+                          moe_specs=self.moe_specs,
+                          fsdp_gather_specs=self.fsdp_gather_specs)
 
     def init_decode_state(self, batch: int, seq_len: int, device=None):
         return tf.init_decode_state(self.cfg, batch, seq_len,
                                     self.param_dtype, device)
 
+    def decode_state_specs(self, batch: int, seq_len: int) -> dict:
+        return tf.decode_state_specs(self.cfg, batch, seq_len,
+                                     self.param_dtype)
+
     def decode(self, params, cache, tokens, cache_len):
-        return tf.decode_step(self.cfg, params, cache, tokens, cache_len)
+        return tf.decode_step(self.cfg, params, cache, tokens, cache_len,
+                              act_spec=self.act_spec)
 
     # ---- input stand-ins ------------------------------------------------
 

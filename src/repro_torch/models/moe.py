@@ -7,10 +7,13 @@ order (the overflow is dropped, standard capacity-factor semantics), the
 expert FFNs run as batched matrix products over the expert axis, and the
 results are combined back weighted by the router's gates.
 
-One group (the reference's ``G = 1``): the reference's ``specs`` argument
-splits the tokens into one group per data shard and pins the dispatch
-buffer's sharding; the port runs on one device until the sharding slice
-(ROADMAP A10), as ``attention.py`` leaves out ``sp_specs``.
+Group-local dispatch, as the reference's: ``specs=(buf_spec, tok_spec,
+G)`` splits the T tokens into ``G`` groups of ``T / G`` (one per data
+shard); each group sorts and dispatches only its own tokens, into its own
+expert buffer ``[G, E, cap_g, d]`` with ``cap_g`` the capacity of ``T / G``
+tokens, and combines its own.  The buffer and the token view are pinned
+to ``buf_spec`` and ``tok_spec`` with ``layers.constrain`` (identity on
+plain tensors).  With no ``specs`` there is one group, ``G = 1``.
 
 The dtypes follow the reference step for step: router logits in the
 model's dtype, then f32; softmax, top-k and the renormalisation in f32;
@@ -44,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import activation
+from repro_torch.models.layers import activation, constrain
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -80,10 +83,12 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int):
 
 class Plan(NamedTuple):
     """Where each (token, expert) assignment goes, in the sorted order of
-    the flat assignments ``t * k + j``: ``order`` (flat index of each),
-    ``expert`` (its expert), ``keep`` (within capacity), ``dest`` (its
-    buffer row ``expert * cap + position``, or ``E * cap`` when dropped)
-    and ``token``."""
+    the flat assignments ``t * k + j`` of its group: ``order`` (flat index
+    of each), ``expert`` (its expert), ``keep`` (within capacity),
+    ``dest`` (its buffer row ``expert * cap + position`` in its group's
+    buffer, or ``E * cap`` when dropped) and ``token`` (counted across the
+    groups: group ``g``'s token ``t`` is ``g * Tg + t``).  Each field is
+    [Tg * k] for one group given as [T, k], else [G, Tg * k]."""
     order: torch.Tensor
     expert: torch.Tensor
     keep: torch.Tensor
@@ -92,20 +97,25 @@ class Plan(NamedTuple):
 
 
 def dispatch_plan(experts: torch.Tensor, n_experts: int, cap: int) -> Plan:
-    """The reference's dispatch of experts [T, k]: a stable argsort of the
+    """The reference's dispatch of experts [T, k] (one group) or
+    [G, Tg, k] (each group on its own): a stable argsort of the group's
     flat expert ids, each assignment's position in its expert's queue from
     ``searchsorted``, and the first ``cap`` of each queue kept."""
-    k = experts.shape[-1]
-    flat = experts.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    sorted_e = flat[order]
+    Tg, k = experts.shape[-2:]
+    flat = experts.reshape(-1, Tg * k)                         # [G, Tg*k]
+    G, dev = flat.shape[0], flat.device
+    order = torch.argsort(flat, dim=-1, stable=True)
+    sorted_e = flat.gather(-1, order)
     run_start = torch.searchsorted(
-        sorted_e, torch.arange(n_experts, device=flat.device), side="left")
-    pos = torch.arange(flat.numel(), device=flat.device) - run_start[sorted_e]
+        sorted_e, torch.arange(n_experts, device=dev).expand(
+            G, n_experts).contiguous(), side="left")
+    pos = torch.arange(Tg * k, device=dev) - run_start.gather(-1, sorted_e)
     keep = pos < cap
     dest = torch.where(keep, sorted_e * cap + pos,
                        torch.full_like(pos, n_experts * cap))
-    return Plan(order, sorted_e, keep, dest, order // k)
+    token = order // k + Tg * torch.arange(G, device=dev)[:, None]
+    plan = Plan(order, sorted_e, keep, dest, token)
+    return Plan(*(f[0] for f in plan)) if experts.ndim == 2 else plan
 
 
 def dropped(plan: Plan) -> torch.Tensor:
@@ -118,31 +128,43 @@ def dropped(plan: Plan) -> torch.Tensor:
     return pairs[torch.argsort(key)]
 
 
-def moe_ff(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d]."""
+def moe_ff(x: torch.Tensor, p: dict, cfg: ModelConfig,
+           specs=None) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d].  ``specs=(buf_spec, tok_spec, G)``: G
+    dispatch groups, the buffer [G, E, cap_g, d] and the token view
+    [G, Tg, d] pinned to the two specs."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
-    xf = x.reshape(T, d)
-    gates, experts = route(xf, p["router"], k)
-    cap = capacity(cfg, T)
+    buf_spec, tok_spec, G = specs if specs is not None else (None, None, 1)
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    Tg = T // G
+    xf = constrain(x.reshape(G, Tg, d), tok_spec)
+    gates, experts = route(xf, p["router"], k)                 # [G, Tg, k]
+    cap = capacity(cfg, Tg)
     plan = dispatch_plan(experts, E, cap)
 
-    buf = x.new_zeros((E * cap + 1, d))          # + the drop slot's row
-    buf[plan.dest] = xf[plan.token]
-    bufe = buf[:E * cap].view(E, cap, d)
-    h_in = torch.bmm(bufe, p["w_in"])
-    h_gate = torch.bmm(bufe, p["w_gate"])
+    gidx = torch.arange(G, device=x.device)[:, None]
+    buf = x.new_zeros((G, E * cap + 1, d))       # + the drop slot's row
+    buf[gidx, plan.dest] = xf.reshape(T, d)[plan.token]
+    bufe = constrain(buf[:, :E * cap].view(G, E, cap, d), buf_spec)
+    # the expert products over every group's rows of an expert
+    rows = bufe.transpose(0, 1).reshape(E, G * cap, d)
+    h_in = torch.bmm(rows, p["w_in"])
+    h_gate = torch.bmm(rows, p["w_gate"])
     h = activation(cfg.act)(h_gate.float()).to(h_in.dtype) * h_in
-    y_e = torch.bmm(h, p["w_out"]).reshape(E * cap, d)
+    y_e = torch.bmm(h, p["w_out"]).view(E, G, cap, d).transpose(0, 1)
+    y_e = constrain(y_e, buf_spec).reshape(G, E * cap, d)
 
     # combine: each assignment's weighted expert output, in sorted order
-    gathered = y_e[plan.dest.clamp(max=E * cap - 1)]
-    gathered = torch.where(plan.keep[:, None], gathered,
+    gathered = y_e[gidx, plan.dest.clamp(max=E * cap - 1)]
+    gathered = torch.where(plan.keep[..., None], gathered,
                            torch.zeros((), dtype=x.dtype, device=x.device))
-    w = gates.reshape(-1)[plan.order]
-    y_sorted = gathered * w[:, None].to(x.dtype)
-    return combine(y_sorted, plan, experts).reshape(B, S, d)
+    w = gates.reshape(G, -1).gather(-1, plan.order)
+    y_sorted = gathered * w[..., None].to(x.dtype)
+    y = combine(y_sorted, plan, experts).view(G, Tg, d)
+    return constrain(y, tok_spec).reshape(B, S, d)
 
 
 def combine(y_sorted: torch.Tensor, plan: Plan,
@@ -150,14 +172,22 @@ def combine(y_sorted: torch.Tensor, plan: Plan,
     """Each token's k contributions (rows of ``y_sorted``, in the plan's
     sorted order) summed in ascending expert id, one rounding per add in
     ``y_sorted``'s dtype: the reference's ``zeros.at[token].add(y_sorted)``
-    as XLA:CPU applies it, update by update.  -> [T, d]."""
-    T, k = experts.shape
-    slot = torch.empty_like(plan.order)
-    slot[plan.order] = torch.arange(T * k, device=plan.order.device)
-    at = slot.view(T, k).gather(1, experts.argsort(-1))
-    y = y_sorted[at[:, 0]]
+    as XLA:CPU applies it, update by update.  One group: y_sorted
+    [T * k, d], experts [T, k]; G groups: [G, Tg * k, d] and [G, Tg, k].
+    -> [T, d]."""
+    Tg, k = experts.shape[-2:]
+    order = plan.order.reshape(-1, Tg * k)                     # [G, Tg*k]
+    G, dev = order.shape[0], order.device
+    slot = torch.empty_like(order)
+    slot.scatter_(1, order, torch.arange(Tg * k, device=dev).expand(
+        G, Tg * k).contiguous())
+    at = slot.view(G, Tg, k).gather(-1, experts.reshape(G, Tg, k).argsort(-1))
+    at = (at + Tg * k * torch.arange(G, device=dev)[:, None, None]
+          ).reshape(G * Tg, k)
+    ys = y_sorted.reshape(G * Tg * k, -1)
+    y = ys[at[:, 0]]
     for j in range(1, k):
-        y = y + y_sorted[at[:, j]]
+        y = y + ys[at[:, j]]
     return y
 
 

@@ -10,7 +10,12 @@ The ``encdec`` family runs a bidirectional encoder over frame embeddings
 layers add a cross-attention sublayer; the ``vlm`` family puts projected
 patch embeddings before the tokens and scores only the text positions.
 ``remat`` (none|dots|full|block) is ``torch.utils.checkpoint`` around the
-layers, as the reference's ``jax.checkpoint`` is.
+layers, as the reference's ``jax.checkpoint`` is.  The sharding arguments
+(``act_spec``, ``sp_specs``, ``moe_specs``, ``fsdp_gather_specs``) pin
+activations, attention's q/k/v, the MoE dispatch and each layer's
+gathered parameters where the reference does, through
+``layers.constrain``: identity on plain tensors, a redistribute on
+DTensors.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (chunked_xent, glu_mlp, mlp_shapes,
-                                       norm, norm_shapes)
+from repro_torch.models.layers import (chunked_xent, constrain, glu_mlp,
+                                       mlp_shapes, norm, norm_shapes)
+from repro_torch.sharding import specs as specs_mod
 
 REMAT = ("none", "dots", "full", "block")
 
@@ -85,6 +91,15 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.family == "vlm":
         shapes["patch_proj"] = (d, d)
     return shapes
+
+
+def param_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """The parameter tree as meta tensors (the reference's
+    ``ShapeDtypeStruct``s): ``dtype``, the SSM's f32 leaves f32."""
+    return unflatten(
+        (name, torch.empty(shape, device="meta", dtype=torch.float32
+                           if is_f32_leaf(name) else dtype))
+        for name, shape in leaves(param_shapes(cfg)))
 
 
 def leaves(tree: dict, path: str = ""):
@@ -181,7 +196,8 @@ def mix_heads(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + s)
 
 
-def mixer(cfg: ModelConfig, x, lp, *, positions, causal, impl):
+def mixer(cfg: ModelConfig, x, lp, *, positions, causal, impl,
+          sp_specs=None):
     """The layer's sequence mixer on the residual stream x: attention on
     ``norm(x, ln1)``, the SSM on it (pure SSM), or both in parallel (hybrid:
     the SSM heads on ``norm(x, ln_ssm)``), averaged by ``mix_heads``."""
@@ -190,7 +206,7 @@ def mixer(cfg: ModelConfig, x, lp, *, positions, causal, impl):
         s, _ = ssm_mod.ssm_forward(h, lp["ssm"], cfg, impl=impl)
         return s
     a, _ = attn_mod.attention(h, lp["attn"], cfg, positions=positions,
-                              causal=causal, impl=impl)
+                              causal=causal, impl=impl, sp_specs=sp_specs)
     if cfg.has_ssm:                                   # hybrid
         s, _ = ssm_mod.ssm_forward(norm(x, lp["ln_ssm"], cfg.norm),
                                    lp["ssm"], cfg, impl=impl)
@@ -198,33 +214,37 @@ def mixer(cfg: ModelConfig, x, lp, *, positions, causal, impl):
     return a
 
 
-def ffn(cfg: ModelConfig, x, lp) -> torch.Tensor:
-    """The layer's feed-forward on ``norm(x, ln2)``: the expert FFN (moe)
-    or the (gated) MLP."""
+def ffn(cfg: ModelConfig, x, lp, moe_specs=None) -> torch.Tensor:
+    """The layer's feed-forward on ``norm(x, ln2)``: the expert FFN (moe,
+    with ``moe_specs``' dispatch groups) or the (gated) MLP."""
     h = norm(x, lp["ln2"], cfg.norm)
     if cfg.family == "moe":
-        return moe_mod.moe_ff(h, lp["ffn"], cfg)
+        return moe_mod.moe_ff(h, lp["ffn"], cfg, specs=moe_specs)
     return glu_mlp(h, lp["ffn"], cfg.act)
 
 
-def cross(cfg: ModelConfig, x, lp, enc_out, *, positions) -> torch.Tensor:
+def cross(cfg: ModelConfig, x, lp, enc_out, *, positions,
+          sp_specs=None) -> torch.Tensor:
     """The decoder's cross-attention sublayer on ``norm(x, ln_x)``: k and v
     from the encoder's output, no rope, not causal.  It takes no ``impl``,
     so it runs the blockwise path whatever the model's ``impl``, as the
     reference's does."""
     h = norm(x, lp["ln_x"], cfg.norm)
     a, _ = attn_mod.attention(h, lp["xattn"], cfg, positions=positions,
-                              causal=False, x_kv=enc_out, use_rope=False)
+                              causal=False, x_kv=enc_out, use_rope=False,
+                              sp_specs=sp_specs)
     return a
 
 
 def _layer_body(cfg: ModelConfig, x, lp, *, positions, causal, impl,
-                enc_out=None):
-    x = x + mixer(cfg, x, lp, positions=positions, causal=causal, impl=impl)
+                enc_out=None, sp_specs=None, moe_specs=None):
+    x = x + mixer(cfg, x, lp, positions=positions, causal=causal, impl=impl,
+                  sp_specs=sp_specs)
     if enc_out is not None:
-        x = x + cross(cfg, x, lp, enc_out, positions=positions)
+        x = x + cross(cfg, x, lp, enc_out, positions=positions,
+                      sp_specs=sp_specs)
     if "ffn" in lp:
-        x = x + ffn(cfg, x, lp)
+        x = x + ffn(cfg, x, lp, moe_specs)
     return x
 
 
@@ -262,16 +282,21 @@ def _checkpointed(fn, mode: str = "full"):
                                           **kw)
 
 
-def _run_layers(cfg: ModelConfig, layers: list, x, remat: str, **kw):
+def _run_layers(cfg: ModelConfig, layers: list, x, remat: str, *,
+                act_spec=None, fsdp_gather_specs=None, **kw):
     """x through each of ``layers`` (per-layer trees) with ``_layer_body``,
     rematerialised as ``remat`` says: per layer (``full``, ``dots``), or
     the reference's sqrt(L) nesting (``block``: blocks of k layers, the
-    outer level saving only each block's input, the inner each layer's)."""
+    outer level saving only each block's input, the inner each layer's).
+    Each layer's parameters are pinned to ``fsdp_gather_specs`` inside the
+    body (one layer gathered at a time) and its output to ``act_spec``."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r}: want one of {REMAT}")
 
     def body(x, lp):
-        return _layer_body(cfg, x, lp, **kw)
+        if fsdp_gather_specs is not None:
+            lp = specs_mod.tree_map(constrain, lp, fsdp_gather_specs)
+        return constrain(_layer_body(cfg, x, lp, **kw), act_spec)
 
     if remat == "none" or not torch.is_grad_enabled():
         for lp in layers:
@@ -300,16 +325,20 @@ def _run_layers(cfg: ModelConfig, layers: list, x, remat: str, **kw):
 
 
 def backbone(cfg: ModelConfig, params, x, *, positions, causal=True,
-             impl="blockwise", enc_out=None, remat: str = "none"):
+             impl="blockwise", enc_out=None, remat: str = "none",
+             act_spec=None, sp_specs=None, moe_specs=None,
+             fsdp_gather_specs=None):
     """Run the stacked layers over x: [B, S, d] (the decoder's, with
     cross-attention to ``enc_out`` for the encoder-decoder)."""
     return _run_layers(cfg, unstack(params["layers"], cfg.n_layers), x,
                        remat, positions=positions, causal=causal, impl=impl,
-                       enc_out=enc_out)
+                       enc_out=enc_out, act_spec=act_spec, sp_specs=sp_specs,
+                       moe_specs=moe_specs,
+                       fsdp_gather_specs=fsdp_gather_specs)
 
 
 def encoder(cfg: ModelConfig, params, frames, *, impl="blockwise",
-            remat="none") -> torch.Tensor:
+            remat="none", sp_specs=None) -> torch.Tensor:
     """Whisper-style encoder over precomputed frame embeddings [B, F, d]
     (stub frontend): bidirectional self-attention, which ropes q and k as
     the reference's does (its ``attention`` defaults to ``use_rope=True``),
@@ -320,7 +349,8 @@ def encoder(cfg: ModelConfig, params, frames, *, impl="blockwise",
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run_layers(enc_cfg, unstack(params["enc_layers"], cfg.enc_layers),
                     x, "none" if remat == "none" else "full",
-                    positions=positions, causal=False, impl=impl)
+                    positions=positions, causal=False, impl=impl,
+                    sp_specs=sp_specs)
     return norm(x, params["enc_ln_f"], cfg.norm)
 
 
@@ -344,34 +374,41 @@ def text_rows(h: torch.Tensor, n_text: int) -> torch.Tensor:
     return h[:, h.shape[1] - n_text:]
 
 
-def lm_embed(cfg: ModelConfig, params, tokens, patches=None
-             ) -> torch.Tensor:
+def lm_embed(cfg: ModelConfig, params, tokens, patches=None,
+             act_spec=None) -> torch.Tensor:
     """The decoder's input [B, S, d] in bf16: the token embeddings, after
-    the projected patch embeddings [B, P, d] for the VLM."""
-    x = embed(params["embed"], tokens).to(torch.bfloat16)
+    the projected patch embeddings [B, P, d] for the VLM; pinned to
+    ``act_spec``."""
+    x = constrain(embed(params["embed"], tokens).to(torch.bfloat16),
+                  act_spec)
     if cfg.family == "vlm":
         px = patches.to(torch.bfloat16) @ params["patch_proj"]
-        x = vlm_prefix(px, x)
+        x = constrain(vlm_prefix(px, x), act_spec)
     return x
 
 
 def lm_hidden(cfg: ModelConfig, params, tokens, *, impl="blockwise",
-              remat="none", frames=None, patches=None) -> torch.Tensor:
+              remat="none", frames=None, patches=None, act_spec=None,
+              sp_specs=None, moe_specs=None,
+              fsdp_gather_specs=None) -> torch.Tensor:
     """The final-normed hidden states [B, S, d] whose logits ``lm_loss``
     scores (for the VLM only the text positions).  ``frames`` [B, F, d]
     (encdec) and ``patches`` [B, P, d] (vlm) are the frontends' stub
-    embeddings."""
+    embeddings; the sharding arguments are ``backbone``'s."""
     if cfg.family == "encdec" and frames is None:
         raise KeyError("frames: the encoder-decoder needs frame embeddings")
     if cfg.family == "vlm" and patches is None:
         raise KeyError("patches: the VLM needs patch embeddings")
-    x = lm_embed(cfg, params, tokens, patches)
+    x = lm_embed(cfg, params, tokens, patches, act_spec)
     positions = torch.arange(x.shape[1], device=x.device)
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = encoder(cfg, params, frames, impl=impl, remat=remat)
+        enc_out = encoder(cfg, params, frames, impl=impl, remat=remat,
+                          sp_specs=sp_specs)
     x = backbone(cfg, params, x, positions=positions, causal=True, impl=impl,
-                 enc_out=enc_out, remat=remat)
+                 enc_out=enc_out, remat=remat, act_spec=act_spec,
+                 sp_specs=sp_specs, moe_specs=moe_specs,
+                 fsdp_gather_specs=fsdp_gather_specs)
     x = norm(x, params["ln_f"], cfg.norm)
     if cfg.family == "vlm":                 # loss only over text positions
         x = text_rows(x, tokens.shape[1])
@@ -384,11 +421,13 @@ def lm_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(cfg: ModelConfig, params, batch, *, impl="blockwise",
-            remat="none", xent_chunk=512) -> torch.Tensor:
+            remat="none", xent_chunk=512, **shard) -> torch.Tensor:
     """Causal LM loss.  batch: tokens/labels [B, S] (+ ``frames`` for the
-    encoder-decoder, ``patches`` for the VLM)."""
+    encoder-decoder, ``patches`` for the VLM); ``shard``: the sharding
+    arguments of ``lm_hidden``."""
     x = lm_hidden(cfg, params, batch["tokens"], impl=impl, remat=remat,
-                  frames=batch.get("frames"), patches=batch.get("patches"))
+                  frames=batch.get("frames"), patches=batch.get("patches"),
+                  **shard)
     unemb = params.get("unembed", params["embed"])
     return chunked_xent(lambda h, e: _logits(cfg, h, e), x, unemb,
                         batch["labels"], chunk=xent_chunk)
@@ -419,19 +458,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
     return out
 
 
+def decode_state_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                       dtype=torch.bfloat16) -> dict:
+    """``init_decode_state``'s tree as meta tensors."""
+    return init_decode_state(cfg, batch, seq_len, dtype, device="meta")
+
+
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
-                cache_len: int):
+                cache_len: int, act_spec=None):
     """One decode step: tokens [B, 1] at position ``cache_len``.
 
     Sliding-window archs index the cache modulo the window (ring buffer);
     the SSM state is O(1).  Returns (logits [B, V] f32, cache); the cache
     is updated in place (see ``attention.attention``; each layer's SSM
-    state is overwritten with its new value).  As in the reference, the
+    state is overwritten with its new value); the embedded tokens are
+    pinned to ``act_spec``.  As in the reference, the
     encoder-decoder's step skips the cross-attention (the encoder is not
     run) and the VLM's ignores the patches.
     """
     emb = params["embed"]
-    x = embed(emb, tokens).to(torch.bfloat16)               # [B, 1, d]
+    x = constrain(embed(emb, tokens).to(torch.bfloat16), act_spec)
     cache_len = int(cache_len)
     positions = torch.full((1,), cache_len, dtype=torch.int32,
                            device=x.device)

@@ -6,7 +6,9 @@ Eager torch: no compile step stands in for ``jax.jit``.  The gradients are
 taken with ``torch.autograd.grad`` with respect to detached aliases of the
 parameters, so the caller's tensors never require grad, and a leaf the
 loss does not use (a pure SSM's ``ln_ssm``) gets zeros, as ``jax.grad``
-gives.  ``grad_pspecs`` (sharding) is not ported (ROADMAP A10).
+gives.  ``grad_pspecs`` pins the gradients to the parameters' specs with
+``layers.constrain`` (identity on plain tensors, a redistribute of
+DTensor gradients), as the reference's sharding constraint does.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import dataclasses
 import torch
 
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import constrain
 from repro_torch.models.model import Model
+from repro_torch.sharding.specs import tree_map
 from repro_torch.train.optimizer import AdamW, AdamWState
 
 
@@ -25,27 +29,35 @@ class TrainConfig:
     loss_scale: float = 1.0      # static loss scaling (bf16 rarely needs it)
 
 
+def value_and_grad(loss_fn, params, batch, scale: float = 1.0):
+    """``(loss_fn(params, batch) * scale, [gradient of each leaf of
+    params, in tf.leaves order])``, taken with respect to detached
+    aliases of the parameters (a leaf the loss does not use gets
+    zeros)."""
+    names, ps = zip(*tf.leaves(params))
+    alias = [p.detach().requires_grad_(True) for p in ps]
+    with torch.enable_grad():
+        loss = loss_fn(tf.unflatten(zip(names, alias)), batch) * scale
+        gs = torch.autograd.grad(loss, alias, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(ps, gs)]
+
+
 def make_train_step(model: Model, opt: AdamW,
-                    tc: TrainConfig = TrainConfig()):
+                    tc: TrainConfig = TrainConfig(), grad_pspecs=None):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics), the parameters and moments updated in place
     (``AdamW.update``); ``metrics``: ``loss``, ``gnorm``, ``lr`` as f32
-    scalar tensors."""
+    scalar tensors.  ``grad_pspecs``: a spec tree the gradients are
+    pinned to."""
 
-    def value_and_grad(params, batch):
-        names, ps = zip(*tf.leaves(params))
-        alias = [p.detach().requires_grad_(True) for p in ps]
-        with torch.enable_grad():
-            loss = model.loss(tf.unflatten(zip(names, alias)), batch) \
-                * tc.loss_scale
-            gs = torch.autograd.grad(loss, alias, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(ps, gs)]
+    def value_and_grad_(params, batch):
+        return value_and_grad(model.loss, params, batch, tc.loss_scale)
 
     def grads_of(params, batch):
         n = tc.microbatches
         if n == 1:
-            return value_and_grad(params, batch)
+            return value_and_grad_(params, batch)
         for k, x in batch.items():
             if x.shape[0] % n:
                 raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows does "
@@ -54,7 +66,7 @@ def make_train_step(model: Model, opt: AdamW,
         for i in range(n):
             mb = {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
                   for k, x in batch.items()}
-            loss, gs = value_and_grad(params, mb)
+            loss, gs = value_and_grad_(params, mb)
             loss_acc = loss_acc.to(loss.device) + loss
             if g_acc is None:
                 g_acc = [g.float() if g.dtype != torch.float32 else g.clone()
@@ -71,8 +83,10 @@ def make_train_step(model: Model, opt: AdamW,
             grads = [g / tc.loss_scale for g in grads]
             loss = loss / tc.loss_scale
         names = [k for k, _ in tf.leaves(params)]
-        params, opt_state, om = opt.update(
-            tf.unflatten(zip(names, grads)), opt_state, params)
+        grads = tf.unflatten(zip(names, grads))
+        if grad_pspecs is not None:
+            grads = tree_map(constrain, grads, grad_pspecs)
+        params, opt_state, om = opt.update(grads, opt_state, params)
         metrics = {"loss": loss.float(), **om}
         return params, opt_state, metrics
 

@@ -13,7 +13,9 @@ the given tensors in place (under ``torch.no_grad()``): a copy of a
 full-size tree each step would cost more than the step.  The step count is
 a Python int, and the schedules return the learning rate as an f32 scalar
 tensor on the CPU, so that a step needs no read from the device.
-``init_specs``/``state_pspecs`` (sharding) are not ported (ROADMAP A10).
+``init_specs`` gives the state as meta tensors (the reference's
+``ShapeDtypeStruct``s) and ``state_pspecs`` its spec tree, the moments
+sharded as the parameters are.
 """
 from __future__ import annotations
 
@@ -72,6 +74,21 @@ class AdamW:
                     torch.zeros(v.shape, dtype=self.state_dtype,
                                 device=v.device) for k, v in tree.items()}
         return AdamWState(step=0, m=zeros(params), v=zeros(params))
+
+    def init_specs(self, param_specs) -> AdamWState:
+        """The state of parameters ``param_specs`` (anything with
+        ``.shape``) as meta tensors; the step an int32 scalar."""
+        def z(tree):
+            return {k: z(v) if isinstance(v, dict) else
+                    torch.empty(tuple(v.shape), dtype=self.state_dtype,
+                                device="meta") for k, v in tree.items()}
+        return AdamWState(
+            step=torch.empty((), dtype=torch.int32, device="meta"),
+            m=z(param_specs), v=z(param_specs))
+
+    def state_pspecs(self, param_pspecs) -> AdamWState:
+        from repro_torch.sharding.specs import P
+        return AdamWState(step=P(), m=param_pspecs, v=param_pspecs)
 
     def lr_at(self, step: int) -> torch.Tensor:
         """The learning rate of step ``step`` (1-based), f32."""

@@ -44,7 +44,12 @@ without one).  Torch only, so they also run where JAX is not installed:
   (the encoder's non-causal, ragged self-attention and the decoder's on
   the tensor-core kernel, not the cross-attention) against
   ``impl="naive"``; one training step on the card against the CPU, no
-  kernel launched.
+  kernel launched;
+- on a process group of one NCCL rank (``chip_smoke.py`` phases 25 and 26
+  at 2 layers of hymba-1.5b's width): int8 error-feedback DP steps (the
+  loss falls, no kernel launched; the card's codes, scales and residuals
+  equal the CPU's bit for bit; the two-level all-reduce on a (1, 1) mesh
+  is the identity), and the one-stage pipeline against ``Model.loss``.
 """
 import numpy as np
 import pytest
@@ -780,3 +785,94 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert b["loss"] == pytest.approx(a["loss"], rel=5e-4)
     assert b["gnorm"] == pytest.approx(a["gnorm"], rel=1e-2)
     assert b["lr"] == a["lr"]
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """A process group of one rank on the card (NCCL) and its host mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh
+    dev = mesh.init_distributed(device="cuda")
+    yield mesh.make_host_mesh(device=dev), dev
+    mesh.shutdown()
+
+
+def _hymba_2l(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    cfg = get_config("hymba-1.5b").scaled(n_layers=2)
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                  global_batch=8))
+    return cfg, params, lambda i: {k: torch.from_numpy(v).to(dev)
+                                   for k, v in data.batch(i).items()}
+
+
+def test_compressed_dp_on_card(one_rank):
+    """Phase 25 at 2 layers: four int8 error-feedback DP steps of
+    hymba-1.5b's width on one NCCL rank (the loss falls on a repeated
+    batch, no kernel of this repository launches); the card's codes,
+    scales and residuals of a step's gradients equal the CPU's bit for
+    bit; ``hierarchical_grad_reduce`` on a (1, 1) mesh is the identity."""
+    from repro_torch.interconnect import scheduler
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import AdamW
+    host, dev = one_rank
+    cfg, params, batch = _hymba_2l(dev)
+    model = Model(cfg, xent_chunk=128)
+    opt = AdamW(lr=1e-3)
+    st, err = opt.init(params), gc.init_error(params)
+    fn = gc.make_dp_train_step(model, opt, host, gc.CompressionConfig(),
+                               device=dev)
+    counts = (flash_attention.launches, ssd_scan.launches, rmsnorm.launches)
+    losses = []
+    for _ in range(4):
+        params, st, err, m = fn(params, st, err, batch(0))
+        losses.append(float(m["loss"]))
+    assert (flash_attention.launches, ssd_scan.launches,
+            rmsnorm.launches) == counts
+    assert losses[-1] < losses[0], losses
+    assert any(float(e.abs().max()) > 0 for _, e in tf.leaves(err))
+    _, grads = value_and_grad(model.loss, params, batch(1))
+    for g, (name, e) in zip(grads, tf.leaves(err)):
+        gf = g.float() + e
+        q, s = gc.quantize(gf)
+        cq, cs = gc.quantize(gf.cpu())
+        assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs), name
+        assert torch.equal(gc._residual(gf, q, s).cpu(),
+                           gc._residual(gf.cpu(), cq, cs)), name
+    tree = tf.unflatten(zip((k for k, _ in tf.leaves(params)), grads))
+    pd = mesh.make_mesh((1, 1), ("pod", "data"), device=dev)
+    out = scheduler.hierarchical_grad_reduce(tree, mesh=pd)
+    for (k, a), (_, b) in zip(tf.leaves(tree), tf.leaves(out)):
+        assert torch.equal(a, b), k
+
+
+def test_one_stage_pipeline_on_card_matches_model_loss(one_rank):
+    """Phase 26 at 2 layers: ``make_pp_loss`` with one stage and four
+    microbatches against ``Model.loss`` on the card, loss and gradients
+    (``chip_smoke.PP_TOL``: the microbatches' products may take other
+    cuBLAS kernels, and autograd adds the four gradients in bf16)."""
+    from repro_torch.models.model import Model
+    from repro_torch.train import pipeline
+    from repro_torch.train.loop import value_and_grad
+    host, dev = one_rank
+    cfg, params, batch = _hymba_2l(dev)
+    b = batch(0)
+    counts = (flash_attention.launches, ssd_scan.launches, rmsnorm.launches)
+    pl, pg = value_and_grad(pipeline.make_pp_loss(
+        cfg, host, n_stages=1, n_micro=4, xent_chunk=128, device=dev),
+        params, b)
+    sl, sg = value_and_grad(Model(cfg, xent_chunk=128).loss, params, b)
+    assert (flash_attention.launches, ssd_scan.launches,
+            rmsnorm.launches) == counts
+    assert float(pl) == pytest.approx(float(sl), rel=1e-3)
+    for a, c in zip(pg, sg):
+        rel = float((a.float() - c.float()).norm() / c.float().norm())
+        assert rel <= 5e-2

@@ -394,3 +394,49 @@ def test_unrounded_leaves_cast_to_the_same_parameters(monkeypatch):
     for (n, a), (_, b) in zip(tf.leaves(want), tf.leaves(got)):
         assert a.dtype == b.dtype, n
         assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("name", MOE)
+def test_group_local_dispatch_matches_jax(name, groups):
+    """``specs=(None, None, G)``: G dispatch groups of T / G tokens, each
+    with the capacity of its own tokens, against the reference's
+    ``moe_ff`` with the same ``specs`` (no mesh: its constraints are
+    no-ops).  The top-k experts and the dropped assignments equal the
+    reference's exactly; the output is held as in the one-group case."""
+    jcfg, cfg = _cfgs(name)
+    x, p = _layer(cfg, seed=6)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in p.items()}
+    with jax_moe_probe() as jc:
+        jy = jmoe.moe_ff(jnp.asarray(x, jnp.bfloat16),
+                         {k: jnp.asarray(v, jnp.bfloat16)
+                          for k, v in p.items()}, jcfg,
+                         specs=(None, None, groups))
+    with port_moe_probe() as tc:
+        ty = moe.moe_ff(tx, tp, cfg, specs=(None, None, groups))
+    jy = np.asarray(jy.astype(jnp.float32))
+    assert jc[0]["groups"] == tc[0]["groups"] == groups
+    assert jc[0]["cap"] == tc[0]["cap"] == moe.capacity(cfg, 128 // groups)
+    np.testing.assert_array_equal(tc[0]["experts"], jc[0]["experts"])
+    assert len(jc[0]["dropped"]) > 0
+    assert tc[0]["dropped"] == jc[0]["dropped"]
+    assert (ty.float().numpy() == jy).mean() >= 0.99
+    _close_rel(ty.float().numpy(), jy, 2.0 ** -7)
+    # the groups change which assignments are dropped
+    with port_moe_probe() as one:
+        moe.moe_ff(tx, tp, cfg)
+    assert one[0]["dropped"] != tc[0]["dropped"]
+
+
+def test_one_group_is_bitwise_the_default():
+    """``specs=(None, None, 1)`` is the same computation as no ``specs``,
+    bit for bit, and a token count that G does not divide raises."""
+    _, cfg = _cfgs("dbrx-132b")
+    x, p = _layer(cfg, seed=7)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in p.items()}
+    assert torch.equal(moe.moe_ff(tx, tp, cfg),
+                       moe.moe_ff(tx, tp, cfg, specs=(None, None, 1)))
+    with pytest.raises(ValueError, match="groups"):
+        moe.moe_ff(tx, tp, cfg, specs=(None, None, 3))

@@ -146,7 +146,8 @@ def jax_moe_probe():
     """Record every call of the reference's ``moe_ff`` made inside the
     block (run eagerly or under ``jax.disable_jit()``): the router's
     probabilities [T, E] (f32), its top-k experts [T, k] and the (token,
-    expert) assignments it dropped, sorted.  The
+    expert) assignments it dropped, sorted (with G dispatch groups, token
+    ``t`` of group ``g`` counts as ``g * Tg + t``).  The
     calls are observed, not re-implemented: ``jax.lax.top_k`` and the
     module's ``constrain`` are wrapped, the token view and the dispatch
     buffer are read from ``constrain``'s arguments, and every expert's
@@ -171,21 +172,26 @@ def jax_moe_probe():
         n = len(seen)
         seen.append(None)
         if n % 4 == 0:                        # the token view [G, Tg, d]
-            calls.append({"xf": np.asarray(x)[0]})
+            calls.append({"xf": np.asarray(x)})
         elif n % 4 == 1:                      # the buffer [G, E, cap, d]
             rec = calls[-1]
-            buf = np.asarray(x)[0]
-            E, cap = buf.shape[:2]
+            G, Tg = rec["xf"].shape[:2]
             dropped = []
-            for e, q in enumerate(_queues(rec["experts"], E)):
-                kept = min(cap, len(q))
-                want = np.zeros_like(buf[e])
-                want[:kept] = rec["xf"][q[:kept]]
-                assert np.array_equal(buf[e], want), \
-                    f"expert {e}: the buffer is not its first {cap} tokens"
-                dropped += [(int(t), e) for t in q[cap:]]
+            for g, buf in enumerate(np.asarray(x)):
+                E, cap = buf.shape[:2]
+                xf = rec["xf"][g]
+                queues = _queues(rec["experts"][g * Tg:(g + 1) * Tg], E)
+                for e, q in enumerate(queues):
+                    kept = min(cap, len(q))
+                    want = np.zeros_like(buf[e])
+                    want[:kept] = xf[q[:kept]]
+                    assert np.array_equal(buf[e], want), \
+                        f"group {g} expert {e}: the buffer is not its " \
+                        f"first {cap} tokens"
+                    dropped += [(int(t) + g * Tg, e) for t in q[cap:]]
             rec["dropped"] = sorted(dropped)
             rec["cap"] = int(cap)
+            rec["groups"] = int(G)
             del rec["xf"]
         return real_constrain(x, spec)
 
@@ -202,7 +208,8 @@ def jax_moe_probe():
 @contextlib.contextmanager
 def port_moe_probe():
     """The port's counterpart of ``jax_moe_probe``: ``moe.dispatch_plan``
-    wrapped, each call's experts [T, k] and ``moe.dropped`` of its plan."""
+    wrapped, each call's experts [T, k] (the groups' in turn), its number
+    of groups and ``moe.dropped`` of its plan."""
     from repro_torch.models import moe
 
     calls = []
@@ -210,7 +217,9 @@ def port_moe_probe():
 
     def plan(experts, n_experts, cap):
         out = real(experts, n_experts, cap)
-        calls.append({"experts": experts.cpu().numpy(),
+        calls.append({"experts": experts.reshape(
+                          -1, experts.shape[-1]).cpu().numpy(),
+                      "groups": experts.shape[0] if experts.ndim == 3 else 1,
                       "dropped": [tuple(r) for r in
                                   moe.dropped(out).cpu().tolist()],
                       "cap": cap})

@@ -1,0 +1,361 @@
+"""Gloo ranks on the CPU for the port's distributed tests.
+
+``run(name, world, tmp_path, **kw)`` spawns ``world`` processes, joins
+them into a gloo process group through a ``file://`` rendezvous under
+``tmp_path`` (no fixed port: several test files may run at once), calls
+the worker ``name`` of this module on every rank and returns each rank's
+result (a dict).  The workers import torch and the port only, and read the
+JAX package's results from ``torch_fixtures/dist_reference.npz``
+(``make_dist_reference.py``).
+
+``python tests/torch_dist.py production_specs OUT.json`` writes the
+port's spec trees on the two production meshes, under a fake process
+group of 512 ranks, for every registered config.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+FIXTURE = pathlib.Path(__file__).parent / "torch_fixtures" / \
+    "dist_reference.npz"
+TIMEOUT_S = 120          # a rank waiting longer on a collective fails
+
+
+def fixture() -> tuple:
+    z = np.load(FIXTURE)
+    return z, json.loads(str(z["meta"]))
+
+
+def _entry(rank, world, rdv, out, name, kw):
+    torch.set_num_threads(1)
+    from repro_torch.launch import mesh
+    mesh.init_distributed(rank, world, rdv, device="cpu",
+                          timeout_s=TIMEOUT_S)
+    try:
+        res = globals()[name](rank, **kw)
+        torch.save(res, pathlib.Path(out) / f"rank{rank}.pt")
+    finally:
+        mesh.shutdown()
+
+
+def run(name: str, world: int, tmp_path, **kw) -> list:
+    import torch.multiprocessing as mp
+    out = pathlib.Path(tmp_path) / name
+    out.mkdir(parents=True, exist_ok=True)
+    rdv = f"file://{out / 'rendezvous'}"
+    mp.start_processes(_entry, args=(world, rdv, str(out), name, kw),
+                       nprocs=world, start_method="spawn")
+    return [torch.load(out / f"rank{r}.pt") for r in range(world)]
+
+
+def spec_list(p) -> list:
+    return [list(a) if isinstance(a, tuple) else a for a in tuple(p)]
+
+
+def port_trees(arch: str, mesh) -> dict:
+    """The port's spec trees of ``arch``'s smoke config on ``mesh``:
+    params, a train batch of 4 x 32, a decode cache of 4 x 32."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import specs as sh
+    cfg = get_config(arch).smoke()
+    model = Model(cfg)
+    pspec = model.param_specs()
+    inputs = sh.meta(model.input_specs(ShapeSpec("t", 32, 4, "train")))
+    cache = model.decode_state_specs(4, 32)
+    return {"params": sh.param_pspecs(cfg, pspec, mesh),
+            "batch": sh.batch_pspecs(inputs, mesh),
+            "cache": sh.cache_pspecs(cfg, cache, mesh)}
+
+
+# ---- workers -------------------------------------------------------------
+
+def _shard_mismatches(mesh, rec: dict, archs, only=None) -> tuple:
+    """Each leaf's local shard on this rank against the fixture's index
+    map for the device of the same number (rank r against JAX's device
+    r): (spec mismatches, shard mismatches, leaves checked)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import specs as sh
+    dev_id = str(dist.get_rank())
+    bad_spec, bad_shard, n = [], [], 0
+    for arch in archs:
+        for tname, specs in port_trees(arch, mesh).items():
+            want = rec["archs"][arch][tname]
+            for path, spec in tf.leaves(specs):
+                w = want[path]
+                if only is not None and not only(w["spec"]):
+                    continue
+                n += 1
+                if spec_list(spec) != w["spec"]:
+                    bad_spec.append((arch, tname, path))
+                shape = tuple(w["shape"])
+                g = torch.arange(math.prod(shape),
+                                 dtype=torch.float64).reshape(shape)
+                local = sh.distribute(g, spec, mesh).to_local()
+                block = g[tuple(slice(a, b) for a, b in w["index"][dev_id])]
+                if not torch.equal(local, block):
+                    bad_shard.append((arch, tname, path))
+    return bad_spec, bad_shard, n
+
+
+def sharding(rank: int, ckpt_dir: str) -> dict:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch import carry
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.interconnect import scheduler
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import specs as sh
+    z, meta = fixture()
+    out = {}
+    archs = tuple(meta["specs"]["dm"]["archs"])
+    for mname, rec in meta["specs"].items():
+        mesh = M.make_mesh(rec["shape"], rec["axes"], device="cpu")
+        out[f"layout/{mname}"] = mesh.mesh.tolist() == rec["devices"]
+        out[f"shards/{mname}"] = _shard_mismatches(mesh, rec, archs)
+    # a planted fault: pod and data swapped in the rank layout, so that a
+    # dim split over ("pod", "data") is laid out data-major
+    rec = meta["specs"]["pdm"]
+    swapped = DeviceMesh("cpu", torch.arange(4).reshape(2, 2, 1)
+                         .transpose(0, 1), mesh_dim_names=tuple(rec["axes"]))
+    out["shards/pdm swapped"] = _shard_mismatches(
+        swapped, rec, archs, only=lambda s: ["pod", "data"] in s)
+
+    # constrain: a redistribute on DTensors, identity on plain tensors
+    dm = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+    x = torch.arange(32.0).reshape(4, 8)
+    d = sh.distribute(x, sh.P("data", None), dm)
+    c = sh.constrain(d, sh.P(None, "model"))
+    out["constrain"] = {
+        "placements": [str(p) for p in c.placements],
+        "want": [str(p) for p in (Replicate(), Shard(1))],
+        "local": c.to_local().clone(),
+        "full_equal": torch.equal(c.full_tensor(), x),
+        "none_is_identity": sh.constrain(d, None) is d,
+        "plain_is_identity": sh.constrain(x, sh.P("data")) is x,
+        "is_dtensor": isinstance(c, DTensor)}
+
+    # elastic restore: a checkpoint written by rank 0 from plain tensors,
+    # restored onto the 2 x 2 mesh by the params' specs, then gathered
+    cfg = get_config("hymba-1.5b").smoke()
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device="cpu")
+    cm = CheckpointManager(ckpt_dir, async_save=False)
+    if rank == 0:
+        cm.save(7, params, blocking=True)
+    dist.barrier()
+    pspecs = sh.param_pspecs(cfg, tf.param_specs(cfg), dm)
+    restored = cm.restore(7, params, shardings=sh.named(pspecs, dm))
+    bad_gather, bad_local, sharded = [], [], 0
+    for (path, p), (_, r), (_, spec) in zip(
+            tf.leaves(params), tf.leaves(restored), tf.leaves(pspecs)):
+        if not isinstance(r, DTensor):
+            bad_gather.append(path)
+            continue
+        sharded += any(a is not None for a in spec)
+        if not torch.equal(r.full_tensor(), p):
+            bad_gather.append(path)
+        if not torch.equal(r.to_local(), sh.distribute(p, spec,
+                                                       dm).to_local()):
+            bad_local.append(path)
+    out["restore"] = {"bad_gather": bad_gather, "bad_local": bad_local,
+                      "sharded_leaves": sharded,
+                      "leaves": len(list(tf.leaves(params)))}
+
+    # the two-level all-reduce against one flat all-reduce
+    pdm = M.make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
+    vals = [torch.from_numpy(np.random.default_rng([5, r]).integers(
+        -1000, 1000, (3, 5)).astype(np.float32)) for r in range(4)]
+    flat = vals[rank].clone()
+    dist.all_reduce(flat)
+    tree = {"a": vals[rank], "b": {"c": vals[rank] * 0.5}}
+    hier = scheduler.hierarchical_grad_reduce(tree, mesh=pdm)
+    out["hier"] = {
+        "equal_flat": torch.equal(scheduler.hierarchical_psum(
+            vals[rank], "data", "pod", mesh=pdm), flat),
+        "equal_sum": torch.equal(flat, sum(vals)),
+        "tree_equal": torch.equal(hier["a"], flat)
+        and torch.equal(hier["b"]["c"], flat * 0.5),
+        "input_kept": torch.equal(tree["a"], vals[rank])}
+
+    # meshes need enough ranks
+    errors = {}
+    for nm, fn in (("production", lambda: M.make_production_mesh(
+            device="cpu")), ("multi_pod", lambda: M.make_production_mesh(
+                multi_pod=True, device="cpu"))):
+        try:
+            fn()
+        except ValueError as e:
+            errors[nm] = str(e)
+    out["mesh_errors"] = errors
+    out["host_mesh"] = M.axis_sizes(M.make_host_mesh(device="cpu"))
+    return out
+
+
+def compress(rank: int, fault: str = "") -> dict:
+    """``compressed_psum`` on a (4,) "data" mesh for the fixture's f32 and
+    bf16 gradients, and ``make_dp_train_step`` on a (4, 1) mesh for the
+    fixture's four steps.  ``fault="no_error_feedback"`` runs both with the
+    error feedback off."""
+    from repro_torch import carry
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.optimizer import AdamW
+    z, meta = fixture()
+    cc = gc.CompressionConfig(error_feedback=fault != "no_error_feedback")
+    out = {"psum": {}}
+    m4 = M.make_mesh((4,), ("data",), device="cpu")
+    for dt in meta["psum"]:
+        pre = f"psum/{dt}/"
+        g = torch.from_numpy(z[pre + "g"][rank]).to(getattr(torch, dt))
+        err = torch.from_numpy(z[pre + "err"][rank])
+        mean, new_err = gc.compressed_psum(g, err, m4, ("data",), cc)
+        q, s = gc.quantize(g.float() + err, cc.bits)
+        want_mean = z[pre + "mean"][rank]
+        # one unit in the last place of the mean's dtype (bf16 keeps 16
+        # fewer bits of the significand than f32)
+        ulp = np.spacing(np.abs(want_mean)) * (2.0 ** 16 if dt == "bfloat16"
+                                               else 1.0)
+        ulps = np.abs(mean.float().numpy() - want_mean) / ulp
+        out["psum"][dt] = {
+            "codes_equal": bool(np.array_equal(q.numpy(),
+                                               z[pre + "codes"][rank])),
+            "scale_equal": bool(s.item() == float(z[pre + "scale"][rank])),
+            "err_equal": bool(np.array_equal(new_err.numpy(),
+                                             z[pre + "new_err"][rank])),
+            "mean_dtype": str(mean.dtype),
+            "mean_max_ulps": float(ulps.max()),
+            "mean_equal": bool(np.array_equal(mean.float().numpy(),
+                                              want_mean))}
+
+    dp = meta["dp"]
+    cfg = get_config(dp["arch"]).smoke()
+    mesh = M.make_mesh(tuple(dp["mesh"]), ("data", "model"), device="cpu")
+    params = carry.params_from_jax(carry.numpy_params(cfg, 0), device="cpu")
+    p0 = {k: v.float().clone() for k, v in tf.leaves(params)}
+    opt = AdamW(lr=dp["lr"])
+    state = opt.init(params)
+    err = gc.init_error(params)
+    step = gc.make_dp_train_step(Model(cfg, xent_chunk=dp["xent_chunk"]),
+                                 opt, mesh, cc, device="cpu")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=dp["seq"],
+                                  global_batch=dp["batch"]))
+    steps = []
+    for i in range(dp["steps"]):
+        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        params, state, err, m = step(params, state, err, b)
+        steps.append({k: float(v) for k, v in m.items()})
+    leaves = {}
+    for (k, p), (_, mm), (_, v), (_, e) in zip(
+            tf.leaves(params), tf.leaves(state.m), tf.leaves(state.v),
+            tf.leaves(err)):
+        leaves[k] = {"mean_abs_delta": float((p.float() - p0[k]).abs()
+                                             .mean()),
+                     "m_mean_abs": float(mm.abs().mean()),
+                     "v_mean": float(v.mean()),
+                     "err_mean_abs": float(e.abs().mean())}
+    out["dp"] = {"metrics": steps, "leaves": leaves,
+                 "params": {k: v.float() for k, v in tf.leaves(params)}}
+    return out
+
+
+def pipeline(rank: int, fault: str = "") -> dict:
+    """The fixture's two pipeline cases: granite-8b smoke, 2 stages on a
+    (2, 2) ("data", "model") mesh (two pipelines side by side), and the
+    4-layer hymba-1.5b smoke cut, 4 stages on (1, 4); each rank's loss and
+    gradients, with the port's sequential ``Model.loss`` beside them.
+    ``fault="handoff_backward"`` drops the hand-off's backward (it returns
+    zeros and sends nothing)."""
+    from repro_torch import carry
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train import pipeline as pp
+    from repro_torch.train.loop import value_and_grad
+    z, meta = fixture()
+    if fault == "handoff_backward":
+        pp._HandOff.backward = staticmethod(
+            lambda ctx, g: (torch.zeros_like(g), None, None))
+    shapes = {"granite": (2, 2), "hybrid": (1, 4)}
+    out = {}
+    for name, c in meta["pp"].items():
+        cfg = get_config(c["arch"]).smoke().scaled(n_layers=c["layers"])
+        mesh = M.make_mesh(shapes[name], ("data", "model"), device="cpu")
+        params = carry.params_from_jax(carry.numpy_params(cfg, 0),
+                                       device="cpu")
+        pre = f"pp/{name}/"
+        batch = {"tokens": torch.from_numpy(z[pre + "tokens"]),
+                 "labels": torch.from_numpy(z[pre + "labels"])}
+        loss_fn = pp.make_pp_loss(cfg, mesh, n_stages=c["stages"],
+                                  n_micro=c["micro"], remat=c["remat"],
+                                  xent_chunk=16, device="cpu")
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        rec = {"loss": float(loss),
+               "grads": {k: g.float() for (k, _), g in
+                         zip(tf.leaves(params), grads)}}
+        if rank == 0:
+            sl, sg = value_and_grad(Model(cfg, xent_chunk=16).loss, params,
+                                    batch)
+            rec["seq_loss"] = float(sl)
+            rec["seq_grads"] = {k: g.float() for (k, _), g in
+                                zip(tf.leaves(params), sg)}
+        out[name] = rec
+    return out
+
+
+def production_specs(path: str) -> None:
+    """The port's spec trees for every registered config on the two
+    production meshes (fake process group of 512 ranks), for each
+    ``ShardingConfig`` variant of ``SC_VARIANTS``, as JSON."""
+    from repro_torch.configs.base import SHAPES, all_configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import specs as sh
+    M.init_fake(512)
+    out = {}
+    for multi in (False, True):
+        mesh = M.make_production_mesh(multi_pod=multi, device="cpu")
+        for arch, cfg in sorted(all_configs().items()):
+            model = Model(cfg)
+            pspec = model.param_specs()
+            dec = SHAPES["decode_32k"]
+            cache = model.decode_state_specs(dec.global_batch, dec.seq_len)
+            for vname, kw in SC_VARIANTS.items():
+                sc = sh.ShardingConfig(**kw)
+                rec = {"params": sh.param_pspecs(cfg, pspec, mesh, sc),
+                       "cache": sh.cache_pspecs(cfg, cache, mesh, sc)}
+                for shp in ("train_4k", "decode_32k"):
+                    rec[f"batch/{shp}"] = sh.batch_pspecs(
+                        sh.meta(model.input_specs(SHAPES[shp])), mesh)
+                out[f"{int(multi)}/{arch}/{vname}"] = {
+                    t: {p: spec_list(s) for p, s in tf.leaves(tree)}
+                    for t, tree in rec.items()}
+    M.shutdown()
+    pathlib.Path(path).write_text(json.dumps(out))
+
+
+SC_VARIANTS = {"default": {}, "no_fsdp": {"fsdp": False},
+               "no_ep": {"ep": False}, "no_tp": {"tp": False},
+               "no_shard_vocab": {"shard_vocab": False},
+               "seq_shard_decode": {"seq_shard_decode": True}}
+
+
+if __name__ == "__main__":
+    globals()[sys.argv[1]](*sys.argv[2:])
