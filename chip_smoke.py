@@ -232,17 +232,32 @@ order in which they run is given after the list):
     ``PP_LAYERS`` layers, B 8 x S 256, loss and gradients against
     ``Model.loss`` on the card (``PP_TOL``), no kernel launched, the
     times of both.  Schedules of more than one stage need more than one
-    card: the gloo tests hold them (``tests/test_torch_pipeline.py``).
+    card: the gloo tests hold them (``tests/test_torch_pipeline.py``);
+27. the multi-pod dry run (``launch/dryrun.py``): (a) in a process of its
+    own (``python3 chip_smoke.py --phase dryrun OUT``), so that its fake
+    group of 512 ranks never meets the NCCL group, whisper-tiny
+    ``train_4k`` and hymba-1.5b ``decode_32k`` on the 16 x 16 mesh with
+    the meshes on the card's device type, held against
+    ``tests/torch_fixtures/dryrun_reference.json`` (status, argument
+    bytes, ``model_flops`` exact; dot FLOPs within
+    ``DRYRUN_FLOPS_TOL``; collective bytes on the train cell), the
+    card's allocated bytes unchanged and its peak 0 during the cells;
+    (b) beside it, phase 24's step (hymba-1.5b, B 8 x S 256) dry-run on
+    a (1, 1) mesh of a one-rank group: its argument bytes equal to the
+    storages of the parameters, AdamW state and batch of that step on
+    the card, its dot FLOPs equal to ``StepAnalysis`` over one real
+    step; the dry run's roofline terms and peak printed beside phase
+    24's measured step and peak, with the achieved TFLOP/s.
 
 Phase 15 (fig9) runs in a second process on the same card (``python3
 chip_smoke.py --phase fig9``, ``Fig9Apart``): one host thread's dispatch
 bounds it for 6-10 minutes while the card idles.  This process runs
 phases 1-11, then 12-14 and 20-21 (the other host-bound simulator
 phases) beside fig9, prints fig9's output when its process ends
-(failing if it failed), then runs 16-19 and 22-26 alone on the card.
-So the walls of phases 12-15 and 20-21 are taken beside another
-process; every kernel and model timing is taken with the card to
-itself.
+(failing if it failed), then runs 16-19 and 22-27 alone on the card
+(27 (a) in a process of its own, beside (b)).  So the walls of phases
+12-15 and 20-21 are taken beside another process; every kernel and
+model timing is taken with the card to itself.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
@@ -281,9 +296,12 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
-H100_BF16_FLOPS = 989e12          # bf16 tensor cores, dense
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.interconnect.cost_model import (  # noqa: E402
+    H100, H100_F32_FLOPS)
+
+H100_BYTES_PER_S = H100.hbm_bw     # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = H100.peak_flops  # bf16 tensor cores, dense
 RMS_SHAPES = [                    # (shape, dtype name, tol)
     ((128, 512), "float32", 1e-5),
     ((2, 64, 1024), "float32", 1e-5),
@@ -2920,6 +2938,230 @@ def phase_pp(dev, kmods, smi) -> dict:
     return rec
 
 
+# phase 27: the dry run's cells on the card's device type, against the
+# reference's compiled cells (``tests/torch_fixtures/dryrun_reference.json``)
+DRYRUN_CELLS = (("whisper-tiny", "train_4k", "pod1_16x16"),
+                ("hymba-1.5b", "decode_32k", "pod1_16x16"))
+DRYRUN_FLOPS_TOL = 0.10        # the port's dot FLOPs against the HLO count
+
+
+def dryrun_fake() -> dict:
+    """Phase 27 (a), in a process of its own (``--phase dryrun``): the
+    cells of ``DRYRUN_CELLS`` on a fake process group of 512 ranks, the
+    meshes on the card's device type; the card's allocated bytes before
+    and after."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun, mesh
+    dev = torch.device("cuda")
+    before = torch.cuda.memory_allocated(dev)
+    mesh.init_fake(512)
+    try:
+        meshes = dict(dryrun.make_meshes("both", dev))
+        # FakeTensorMode probes the CUDA context once per device form with
+        # a 4-byte tensor of its own (``init_gpu_context``): done here, so
+        # that the peak read after the cells is theirs alone
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            for d in (dev, torch.device("cuda", torch.cuda.current_device())):
+                torch.empty(1, device=d)
+        setup_max = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        rows = [dryrun.run_cell(get_config(a), SHAPES[s], meshes[m], m,
+                                device=dev, seq_shard_decode=True)
+                for a, s, m in DRYRUN_CELLS]
+        wall = time.perf_counter() - t
+        cells_max = torch.cuda.max_memory_allocated(dev)
+    finally:
+        mesh.shutdown()
+    return dict(rows=rows, wall_s=wall, allocated_before=before,
+                allocated_after=torch.cuda.memory_allocated(dev),
+                max_allocated_setup=setup_max, max_allocated=cells_max)
+
+
+def dryrun_errors(row: dict, fx: dict) -> list:
+    """What in one dry-run row disagrees with the reference's fixture:
+    status, per-device argument bytes (every argument against the
+    declared shardings; the arguments read against
+    ``argument_size_in_bytes``), ``model_flops``, dot FLOPs within
+    ``DRYRUN_FLOPS_TOL``, collective bytes on a train cell."""
+    key = (row["arch"], row["shape"], row["mesh"])
+    comp = {(r["arch"], r["shape"], r["mesh"]): r for r in fx["compiled"]}
+    grid = {(r["arch"], r["shape"], r["mesh"]): r for r in fx["grid"]}
+    ref, cell = comp[key], grid[key]
+    bad = []
+    if row["status"] != ref["status"]:
+        return [f"status {row['status'][:300]} != {ref['status']}"]
+    if row["status"] != "OK":
+        return bad
+    if row["arg_bytes_per_dev"] != cell["arg_bytes_per_dev"]:
+        bad.append(f"arg bytes {row['arg_bytes_per_dev']} != "
+                   f"{cell['arg_bytes_per_dev']}")
+    if row["read_arg_bytes_per_dev"] != ref["argument_size_in_bytes"]:
+        bad.append(f"read arg bytes {row['read_arg_bytes_per_dev']} != "
+                   f"{ref['argument_size_in_bytes']}")
+    if row["model_flops"] != cell["model_flops"]:
+        bad.append(f"model_flops {row['model_flops']} != "
+                   f"{cell['model_flops']}")
+    ratio = row["flops_per_dev"] / ref["flops_per_dev"]
+    if not abs(ratio - 1) <= DRYRUN_FLOPS_TOL:
+        bad.append(f"flops ratio {ratio}")
+    if row["shape"].startswith("train") and \
+            not row["coll_bytes_per_dev"] > 0:
+        bad.append("no collective bytes on a train cell")
+    return bad
+
+
+class DryrunApart:
+    """Phase 27 (a) in a second process (``python3 chip_smoke.py --phase
+    dryrun``), so that its fake group of 512 ranks never meets the NCCL
+    group of phases 25-27 (b); ``join`` returns its record."""
+
+    def __init__(self):
+        import tempfile
+        self.out = tempfile.NamedTemporaryFile(mode="w+", suffix=".json")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--phase", "dryrun", self.out.name], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def join(self, timeout: float) -> dict:
+        try:
+            log, _ = self.proc.communicate(timeout=timeout)
+        finally:
+            self.kill()
+        if self.proc.returncode:
+            raise AssertionError(f"phase 27 (a) failed (exit "
+                                 f"{self.proc.returncode}): {log[-3000:]}")
+        self.out.seek(0)
+        return json.loads(self.out.read())
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def storage_bytes(tensors) -> int:
+    """Bytes of the storages under ``tensors``, each storage once."""
+    seen, total = set(), 0
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    return total
+
+
+def phase_dryrun(dev, smi, apart: DryrunApart, step24: dict) -> dict:
+    """Phase 27: (a) the fake grid's cells against the reference (from
+    ``apart``); (b) the dry-run cell of phase 24's training step
+    (hymba-1.5b, B 8 x S 256, ``remat="none"``, f32 AdamW state) on a
+    (1, 1) mesh of a one-rank group against one real step of it on the
+    card: argument bytes equal to the storages the step holds (the step
+    counter, a host int in the port, counted as the reference's int32
+    scalar), dot FLOPs equal to ``StepAnalysis`` over the real step; the
+    dry run's roofline terms and peak beside phase 24's measured step."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.interconnect import graph_traffic as gt
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    t0 = time.perf_counter()
+    cfg = get_config("hymba-1.5b")
+    B, S = step24["batch"], step24["seq"]
+    shape = ShapeSpec("train_phase24", S, B, "train")
+    with process_group(dev) as M:
+        one = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        fake = dryrun.run_cell(cfg, shape, one, "1x1", device=dev,
+                               remat="none")
+    if fake["status"] != "OK":
+        raise AssertionError(f"phase 27 (b) dry run: {fake['status']}\n"
+                             f"{fake.get('traceback', '')}")
+    # phase 24's step (launch/train.py), one step on the card
+    model = Model(cfg, xent_chunk=128)
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=5, total=step24["steps"]))
+    step = make_train_step(model, opt, TrainConfig(microbatches=1))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    ).batch(0).items()}
+    held = [t for _, t in tf.leaves(params)] + \
+        [t for _, t in tf.leaves(state.m)] + \
+        [t for _, t in tf.leaves(state.v)] + list(batch.values())
+    real_bytes = storage_bytes(held) + 4          # + the int32 step
+    _, st = gt.analyze(step, params, state, batch, arg_tensors=held)
+    torch.cuda.synchronize()
+    del params, state, batch, held
+    torch.cuda.empty_cache()
+    real = dict(arg_bytes=real_bytes, flops=st.flops_per_dev)
+    step_s = step24["step_ms_mean_after_2"] / 1e3
+    rec = dict(
+        cell=dict(arch=cfg.name, batch=B, seq=S, remat="none",
+                  state_dtype="float32"),
+        dryrun={k: fake[k] for k in (
+            "flops_per_dev", "bytes_per_dev", "arg_bytes_per_dev",
+            "read_arg_bytes_per_dev", "peak_mem_per_dev", "t_compute_ms",
+            "t_memory_ms", "t_collective_ms", "compile_s")},
+        real_step=real,
+        phase24=dict(step_ms=step24["step_ms_mean_after_2"],
+                     peak_gib=step24["peak_gib"],
+                     max_memory_allocated_bytes=step24["peak_gib"] * 2**30),
+        achieved_tflops=fake["flops_per_dev"] / step_s / 1e12,
+        share_of_bf16_peak=fake["flops_per_dev"] / step_s / H100.peak_flops,
+        power=nvidia_smi())
+    if fake["arg_bytes_per_dev"] != real_bytes:
+        raise AssertionError(f"phase 27 (b): dry-run argument bytes "
+                             f"{fake['arg_bytes_per_dev']} != the step's "
+                             f"storages {real_bytes}")
+    if fake["flops_per_dev"] != st.flops_per_dev:
+        raise AssertionError(f"phase 27 (b): dry-run flops "
+                             f"{fake['flops_per_dev']} != the real step's "
+                             f"{st.flops_per_dev}")
+    say("dryrun-step", json.dumps(rec))
+
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "dryrun_reference.json").read_text())
+    grid = apart.join(timeout=300)
+    cells = []
+    for row in grid["rows"]:
+        ref = {(r["arch"], r["shape"], r["mesh"]): r for r in fx["compiled"]}[
+            (row["arch"], row["shape"], row["mesh"])]
+        errs = dryrun_errors(row, fx)
+        cells.append(dict(
+            cell=f"{row['arch']} {row['shape']} {row['mesh']}",
+            status=row["status"][:200], errors=errs,
+            flops=row.get("flops_per_dev"),
+            ref_flops=ref.get("flops_per_dev"),
+            arg_bytes=row.get("arg_bytes_per_dev"),
+            read_arg_bytes=row.get("read_arg_bytes_per_dev"),
+            ref_argument_size=ref.get("argument_size_in_bytes"),
+            coll_by_op=row.get("coll_by_op"),
+            ref_coll_by_op=ref.get("coll_by_op"),
+            compile_s=row.get("compile_s")))
+    fake_rec = dict(cells=cells, wall_s=grid["wall_s"],
+                    allocated_before=grid["allocated_before"],
+                    allocated_after=grid["allocated_after"],
+                    max_allocated_setup=grid["max_allocated_setup"],
+                    max_allocated=grid["max_allocated"])
+    say("dryrun-fake", json.dumps(fake_rec))
+    bad = {c["cell"]: c["errors"] for c in cells if c["errors"]}
+    if bad:
+        raise AssertionError(f"phase 27 (a) against the reference: {bad}")
+    if grid["allocated_after"] != grid["allocated_before"] or \
+            grid["max_allocated"]:
+        raise AssertionError(f"phase 27 (a) allocated on the card: "
+                             f"{fake_rec}")
+    say("dryrun", f"phase 27 wall {time.perf_counter() - t0:.1f} s")
+    return dict(step=rec, fake=fake_rec)
+
+
 def _tensors(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3011,6 +3253,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if argv[:2] == ["--phase", "dryrun"] and len(argv) == 3:
+        # phase 27 (a), in a process of its own
+        pathlib.Path(argv[2]).write_text(json.dumps(dryrun_fake()))
+        return 0
     if argv == ["--phase", "fig9"]:      # fig9, in a process of its own
         from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
         phase_fig9(torch.device("cuda"),
@@ -3110,6 +3356,15 @@ def main(argv=None) -> int:
     # the distributed training path on a process group of one rank
     phase_dp(dev, kmods, smi, train["full"]["step_ms_mean_after_2"])
     phase_pp(dev, kmods, smi)
+    # the dry run: its fake grid in a second process beside one real
+    # step's cell on a one-rank group
+    apart = DryrunApart()
+    try:
+        zero(kmods)
+        phase_dryrun(dev, smi, apart, train["full"])
+        expect_counts("dry run", counts(kmods), {})
+    finally:
+        apart.kill()
 
     granite, mamba, hy = ("granite-8b forward", "mamba2-1.3b forward",
                           "hymba-1.5b forward")

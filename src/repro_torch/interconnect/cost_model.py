@@ -3,10 +3,18 @@
 arithmetic over the port's configs and ``ShapeSpec``; ``V5E``'s constants
 are the reference's TPU v5e figures, unchanged).
 
-Three-term roofline (per device, TPU v5e target):
-    compute    = HLO_FLOPs / peak_FLOPs            (197 TFLOP/s bf16)
-    memory     = HLO_bytes / HBM_bw                (819 GB/s)
-    collective = wire_bytes / ICI_link_bw          (~50 GB/s/link)
+Three-term roofline (per device):
+    compute    = step FLOPs / peak_FLOPs
+    memory     = step bytes / HBM_bw
+    collective = wire_bytes / link_bw
+
+``H100`` is the port's card, the one place its peak rates are written
+(``chip_smoke.py`` and the dry run read them here): H100 SXM, bf16 dense
+tensor-core peak 989 TFLOP/s, HBM3 3.35 TB/s, NVLink 4 at 450 GB/s a
+direction per GPU as the collective bandwidth, and the 80 GB card's
+device memory as ``torch.cuda.get_device_properties(0).total_memory``
+reads it.  ``V5E`` is the reference's TPU v5e target (197 TFLOP/s bf16,
+819 GB/s, ~50 GB/s a link).  The fabric pJ/bit are the paper's in both.
 
 Fabric energy applies the paper's evaluation axis (pJ/bit) to the step's
 collective traffic: the ICI mesh plays the interposer fabric, inter-pod DCN
@@ -16,7 +24,6 @@ hypothetical in-package fabric — reported per step for comparison.
 from __future__ import annotations
 
 import dataclasses
-
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +40,10 @@ class HwSpec:
 
 
 V5E = HwSpec()
+
+H100 = HwSpec(name="h100-sxm", peak_flops=989e12, hbm_bw=3.35e12,
+              ici_bw=450e9, hbm_bytes=85_017_493_504)
+H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
 
 
 @dataclasses.dataclass

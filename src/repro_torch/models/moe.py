@@ -47,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import activation, constrain
+from repro_torch.models.layers import constrain, gated
 
 
 def moe_shapes(cfg: ModelConfig) -> dict:
@@ -133,38 +133,117 @@ def moe_ff(x: torch.Tensor, p: dict, cfg: ModelConfig,
     """x: [B, S, d] -> [B, S, d].  ``specs=(buf_spec, tok_spec, G)``: G
     dispatch groups, the buffer [G, E, cap_g, d] and the token view
     [G, Tg, d] pinned to the two specs."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return moe_on_shards(x, p, cfg, specs)
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    E = cfg.n_experts
     T = B * S
     buf_spec, tok_spec, G = specs if specs is not None else (None, None, 1)
     if T % G:
         raise ValueError(f"{T} tokens do not split into {G} groups")
     Tg = T // G
     xf = constrain(x.reshape(G, Tg, d), tok_spec)
-    gates, experts = route(xf, p["router"], k)                 # [G, Tg, k]
     cap = capacity(cfg, Tg)
-    plan = dispatch_plan(experts, E, cap)
-
-    gidx = torch.arange(G, device=x.device)[:, None]
-    buf = x.new_zeros((G, E * cap + 1, d))       # + the drop slot's row
-    buf[gidx, plan.dest] = xf.reshape(T, d)[plan.token]
+    gates, experts, plan, buf = _dispatch(xf, p["router"], cfg, cap)
     bufe = constrain(buf[:, :E * cap].view(G, E, cap, d), buf_spec)
     # the expert products over every group's rows of an expert
     rows = bufe.transpose(0, 1).reshape(E, G * cap, d)
     h_in = torch.bmm(rows, p["w_in"])
     h_gate = torch.bmm(rows, p["w_gate"])
-    h = activation(cfg.act)(h_gate.float()).to(h_in.dtype) * h_in
+    h = gated(cfg.act, h_gate, h_in)
     y_e = torch.bmm(h, p["w_out"]).view(E, G, cap, d).transpose(0, 1)
     y_e = constrain(y_e, buf_spec).reshape(G, E * cap, d)
+    y = _combine_groups(y_e, gates, experts, plan, E, cap).view(G, Tg, d)
+    return constrain(y, tok_spec).reshape(B, S, d)
 
-    # combine: each assignment's weighted expert output, in sorted order
+
+def _dispatch(xf, router, cfg: ModelConfig, cap: int):
+    """Route and dispatch the groups of xf [G, Tg, d]: (gates [G, Tg, k],
+    experts, plan, the buffer [G, E * cap + 1, d], its last row the drop
+    slot's)."""
+    G, Tg, d = xf.shape
+    gates, experts = route(xf, router, cfg.top_k)
+    plan = dispatch_plan(experts, cfg.n_experts, cap)
+    gidx = torch.arange(G, device=xf.device)[:, None]
+    buf = xf.new_zeros((G, cfg.n_experts * cap + 1, d))
+    buf[gidx, plan.dest] = xf.reshape(G * Tg, d)[plan.token]
+    return gates, experts, plan, buf
+
+
+def _combine_groups(y_e, gates, experts, plan, E: int, cap: int):
+    """The groups' outputs [G * Tg, d] from their expert outputs y_e
+    [G, E * cap, d]: each assignment's weighted expert output, in sorted
+    order, summed per token (``combine``)."""
+    G = y_e.shape[0]
+    gidx = torch.arange(G, device=y_e.device)[:, None]
     gathered = y_e[gidx, plan.dest.clamp(max=E * cap - 1)]
     gathered = torch.where(plan.keep[..., None], gathered,
-                           torch.zeros((), dtype=x.dtype, device=x.device))
+                           torch.zeros((), dtype=y_e.dtype,
+                                       device=y_e.device))
     w = gates.reshape(G, -1).gather(-1, plan.order)
-    y_sorted = gathered * w[..., None].to(x.dtype)
-    y = combine(y_sorted, plan, experts).view(G, Tg, d)
-    return constrain(y, tok_spec).reshape(B, S, d)
+    return combine(gathered * w[..., None].to(y_e.dtype), plan, experts)
+
+
+def moe_on_shards(x, p: dict, cfg: ModelConfig, specs=None):
+    """``moe_ff`` of a DTensor x [B, S, d] whose rows are split over the
+    data ranks: each rank routes, dispatches and combines its own groups
+    (one group per data shard with ``specs``; with none, one group of
+    every token, gathered on each rank), and the expert products run on
+    the shards of the buffer, the experts' weights split as they are
+    (``layers.dot``).  The sort, ``searchsorted`` and the scatter of the
+    dispatch have no DTensor sharding rule; they are local to a group by
+    design.  With one group every rank holds the whole buffer, and the
+    products split the weights' dims as they are (GSPMD's choice for a
+    few rows against large weights)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.models.layers import dot
+    from repro_torch.sharding import specs as sh
+    B, S, d = x.shape
+    E = cfg.n_experts
+    buf_spec, tok_spec, G = specs if specs is not None else (None, None, 1)
+    T = B * S
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    Tg = T // G
+    mesh = x.device_mesh
+    if G == 1:
+        xf = x.redistribute(mesh, [Replicate()] * mesh.ndim) \
+            .reshape(1, T, d)
+    else:
+        xf = constrain(x.reshape(G, Tg, d), tok_spec)
+    split = [p_.is_shard(0) for p_ in xf.placements]
+    if any(p_.is_shard() and not p_.is_shard(0) for p_ in xf.placements):
+        raise ValueError(f"moe tokens placed {xf.placements}")
+    xf = sh.with_placements(xf, lambda i, p_: p_ if split[i]
+                            else Replicate())
+    cap = capacity(cfg, Tg)
+    groups = [Shard(0) if s else Replicate() for s in split]
+    # the router's gradient on a rank covers its own groups' tokens only
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim) \
+        .to_local(grad_placements=[Partial() if s else Replicate()
+                                   for s in split])
+    gates, experts, plan, buf = _dispatch(xf.to_local(), router, cfg, cap)
+    bufe = sh.as_placed(buf[:, :E * cap].reshape(-1, E, cap, d), mesh,
+                        groups, (G, E, cap, d))
+    bufe = constrain(bufe, buf_spec)
+    rows = bufe.transpose(0, 1).reshape(E, G * cap, d)
+    h_in = dot(rows, p["w_in"])
+    h_gate = dot(rows, p["w_gate"])
+    h = gated(cfg.act, h_gate, h_in)
+    y_e = dot(h, p["w_out"])
+    y_e = sh.with_placements(y_e, lambda i, p_: Replicate()
+                             if p_.is_partial() else p_)
+    y_e = y_e.reshape(E, G, cap, d).transpose(0, 1)
+    y_e = constrain(y_e, buf_spec)
+    y_e = sh.with_placements(y_e, lambda i, p_: groups[i])
+    y = _combine_groups(y_e.to_local().reshape(-1, E * cap, d), gates,
+                        experts, plan, E, cap)
+    y = sh.as_placed(y.reshape(-1, Tg, d), mesh, groups, (G, Tg, d))
+    y = constrain(y, tok_spec).reshape(B, S, d)
+    return sh.with_placements(y, lambda i, p_: Replicate()
+                              if x.placements[i].is_partial()
+                              else x.placements[i])
 
 
 def combine(y_sorted: torch.Tensor, plan: Plan,
@@ -199,6 +278,6 @@ def moe_ff_dense_reference(x: torch.Tensor, p: dict,
                         device=x.device).scatter(-1, experts, gate_vals)
     h_in = torch.einsum("bsd,edf->bsef", x, p["w_in"])
     h_gate = torch.einsum("bsd,edf->bsef", x, p["w_gate"])
-    h = activation(cfg.act)(h_gate.float()).to(h_in.dtype) * h_in
+    h = gated(cfg.act, h_gate, h_in)
     y = torch.einsum("bsef,efd->bsed", h, p["w_out"])
     return torch.einsum("bsed,bse->bsd", y, gates.to(x.dtype))

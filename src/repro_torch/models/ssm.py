@@ -30,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssd_scan
+from repro_torch.models.layers import dot, split_last
+from repro_torch.sharding import specs as sh
 
 # leaves the reference declares f32 whatever the model's dtype
 F32_LEAVES = ("a_log", "dt_bias", "d_skip")
@@ -142,14 +144,80 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, *, impl: str = "naive"):
     return y, carry
 
 
+def ssd_on_shards(x, dt, A, B, C, chunk: int, *, impl: str = "naive"):
+    """``ssd_chunked`` of DTensors, each rank on its own batch rows and
+    heads as x is split (its sequence and head dim gathered): dt and A
+    cut to the rank's heads, B and C to its rows.  The chunked SSD is
+    local to a (row, head) block; DTensor has no sharding rule for its
+    einsums over rows and heads split on two mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = sh.with_placements(x, lambda i, p: p if p.is_shard(0)
+                           or p.is_shard(2) else Replicate())
+    pl, mesh = x.placements, x.device_mesh
+
+    def like(shard_h):
+        return [Shard(0) if p.is_shard(0) else Shard(shard_h)
+                if p.is_shard(2) else Replicate() for p in pl]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+    heads = [Shard(0) if p.is_shard(2) else Replicate() for p in pl]
+    # A's gradient on a rank covers its own rows only, B's and C's its own
+    # heads
+    g_heads = [Shard(0) if p.is_shard(2) else Partial() if p.is_shard(0)
+               else Replicate() for p in pl]
+    g_rows = [Shard(0) if p.is_shard(0) else Partial() if p.is_shard(2)
+              else Replicate() for p in pl]
+    y, final = ssd_chunked(
+        x.to_local(), dt.redistribute(mesh, like(2)).to_local(),
+        A.redistribute(mesh, heads).to_local(grad_placements=g_heads),
+        B.redistribute(mesh, rows).to_local(grad_placements=g_rows),
+        C.redistribute(mesh, rows).to_local(grad_placements=g_rows), chunk,
+        impl=impl)
+    b, _, h, p_ = x.shape
+    return (sh.as_placed(y, mesh, pl, x.shape),
+            sh.as_placed(final, mesh, like(1), (b, h, p_, B.shape[-1])))
+
+
+def recur(s, dt1, A, b, x, c):
+    """One O(1) decode step: s' = s * exp(dt A) + dt * B (x) x; y = C . s'.
+    s [B,H,P,N] f32, dt1 [B,H], A [H], b and c [B,N], x [B,H,P] ->
+    (y [B,H,P], s')."""
+    decay = torch.exp(dt1 * A[None, :])
+    upd = b.float()[:, None, None, :] \
+        * (dt1[:, :, None] * x.float())[..., None]
+    s_new = s * decay[..., None, None] + upd
+    return torch.einsum("bn,bhpn->bhp", c.float(), s_new), s_new
+
+
+def recur_on_shards(s, dt1, A, b, x, c):
+    """``recur`` with a DTensor state, each rank on its own rows and heads
+    as the state is split (its P and N gathered): the step is local to a
+    (row, head) block."""
+    from torch.distributed.tensor import Replicate, Shard
+    s = sh.with_placements(s, lambda i, p: p if p.is_shard(0)
+                           or p.is_shard(1) else Replicate())
+    pl, mesh = s.placements, s.device_mesh
+    bh = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(1)
+          else Replicate() for p in pl]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+    heads = [Shard(0) if p.is_shard(1) else Replicate() for p in pl]
+
+    def on(t, want):
+        return sh.with_placements(
+            t, lambda i, p: want[i]).to_local()
+    y, s_new = recur(s.to_local(), on(dt1, bh), on(A, heads), on(b, rows),
+                     on(x, bh), on(c, rows))
+    return (sh.as_placed(y, mesh, bh, x.shape),
+            sh.as_placed(s_new, mesh, pl, s.shape))
+
+
 def _project(x, p, cfg: ModelConfig):
     """The layer's input projections: (x heads [B,S,H,P], gate z, B, C,
     dt [B,S,H] f32, A [H] f32)."""
     Bsz, S, _ = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xin, z = (x @ p["w_xz"]).chunk(2, dim=-1)
-    Bm, Cm = (x @ p["w_bc"]).split(N, dim=-1)              # [B,S,N]
-    v = (x @ p["w_dt"]).float() + p["dt_bias"]
+    xin, z = split_last(dot(x, p["w_xz"]), cfg.d_inner)
+    Bm, Cm = split_last(dot(x, p["w_bc"]), N)             # [B,S,N]
+    v = dot(x, p["w_dt"]).float() + p["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros_like(v))           # jax softplus
     A = -torch.exp(p["a_log"])                             # [H] negative
     return xin.reshape(Bsz, S, H, P), z, Bm, Cm, dt, A
@@ -165,7 +233,7 @@ def _epilogue(y, xh, z, x, p):
     yf = y.float()
     ms = (yf * yf).mean(-1, keepdim=True)
     y = (yf * torch.rsqrt(ms + 1e-6)).to(x.dtype) * p["norm_w"]
-    return y @ p["w_out"]
+    return dot(y, p["w_out"])
 
 
 def ssm_forward(x, p, cfg: ModelConfig, *, state=None,
@@ -180,17 +248,13 @@ def ssm_forward(x, p, cfg: ModelConfig, *, state=None,
     xh, z, Bm, Cm, dt, A = _project(x, p, cfg)
     if state is None:
         chunk = min(cfg.ssm_chunk, S)
-        y, final = ssd_chunked(xh, dt, A, Bm, Cm, chunk, impl=impl)
+        ssd = ssd_on_shards if sh.is_dtensor(xh) else ssd_chunked
+        y, final = ssd(xh, dt, A, Bm, Cm, chunk, impl=impl)
         new_state = {"ssm": final}
     else:
-        # O(1) decode: s' = s * exp(dt A) + dt * B (x) ; y = C . s'
-        s = state["ssm"]                                   # [B,H,P,N]
-        dt1 = dt[:, 0]                                     # [B,H]
-        decay = torch.exp(dt1 * A[None, :])
-        upd = Bm[:, 0].float()[:, None, None, :] \
-            * (dt1[:, :, None] * xh[:, 0].float())[..., None]
-        s_new = s * decay[..., None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), s_new)
+        step = recur if not sh.is_dtensor(state["ssm"]) else recur_on_shards
+        y, s_new = step(state["ssm"], dt[:, 0], A, Bm[:, 0], xh[:, 0],
+                        Cm[:, 0])
         y = y[:, None]                                     # [B,1,H,P]
         new_state = {"ssm": s_new}
     return _epilogue(y, xh, z, x, p), new_state

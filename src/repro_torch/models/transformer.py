@@ -27,8 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (chunked_xent, constrain, glu_mlp,
-                                       mlp_shapes, norm, norm_shapes)
+from repro_torch.models.layers import (chunked_xent, constrain, dot,
+                                       glu_mlp, mlp_shapes, norm,
+                                       norm_shapes)
 from repro_torch.sharding import specs as specs_mod
 
 REMAT = ("none", "dots", "full", "block")
@@ -183,7 +184,44 @@ def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     then every id is clamped into range."""
     n = emb.shape[0]
     t = tokens.long()
-    return emb[torch.where(t < 0, t + n, t).clamp(0, n - 1)]
+    t = torch.where(t < 0, t + n, t).clamp(0, n - 1)
+    from torch.distributed.tensor import DTensor
+    if isinstance(emb, DTensor):
+        return embed_on_shards(emb, t)
+    return emb[t]
+
+
+def embed_on_shards(emb, t):
+    """``emb[t]`` of a DTensor table, each rank on its own shard, as
+    GSPMD partitions the gather: per mesh dim, the ids split (the table
+    gathered), else the vocabulary split (each rank looks up the ids in
+    its rows, zeros elsewhere: a pending sum), else the width split.
+    DTensor's own rule for the lookup's backward fails on some torch
+    versions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = emb.device_mesh
+    t = specs_mod.with_placements(t, lambda i, p: p if p.is_shard()
+                                  else Replicate())
+    ep, yp, gp = [], [], []
+    for a, b in zip(t.placements, emb.placements):
+        if a.is_shard():
+            r = (Replicate(), a, Partial())
+        elif b.is_shard(0):
+            r = (b, Partial(), b)
+        elif b.is_shard(1):
+            r = (b, Shard(t.ndim), b)
+        else:
+            r = (Replicate(),) * 3
+        for acc, v in zip((ep, yp, gp), r):
+            acc.append(v)
+    local = emb.redistribute(mesh, ep)
+    v0 = specs_mod.shard_offset(local, 0)
+    el = local.to_local(grad_placements=gp)
+    idx = t.to_local() - v0
+    mine = (idx >= 0) & (idx < el.shape[0])
+    out = torch.where(mine[..., None], el[idx.clamp(0, el.shape[0] - 1)],
+                      torch.zeros((), dtype=el.dtype, device=el.device))
+    return specs_mod.as_placed(out, mesh, yp, (*t.shape, emb.shape[1]))
 
 
 # --------------------------------------------------------------------------
@@ -356,7 +394,7 @@ def encoder(cfg: ModelConfig, params, frames, *, impl="blockwise",
 
 def _logits(cfg: ModelConfig, h: torch.Tensor, e: torch.Tensor
             ) -> torch.Tensor:
-    logits = h @ e.T                              # einsum bsd,vd->bsv
+    logits = dot(h, e.T)                          # einsum bsd,vd->bsv
     if cfg.vocab_padded != cfg.vocab:             # mask padded vocab rows
         pad = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
         logits = torch.where(pad, logits, -1e30)
@@ -382,7 +420,7 @@ def lm_embed(cfg: ModelConfig, params, tokens, patches=None,
     x = constrain(embed(params["embed"], tokens).to(torch.bfloat16),
                   act_spec)
     if cfg.family == "vlm":
-        px = patches.to(torch.bfloat16) @ params["patch_proj"]
+        px = dot(patches.to(torch.bfloat16), params["patch_proj"])
         x = constrain(vlm_prefix(px, x), act_spec)
     return x
 
@@ -428,9 +466,14 @@ def lm_loss(cfg: ModelConfig, params, batch, *, impl="blockwise",
     x = lm_hidden(cfg, params, batch["tokens"], impl=impl, remat=remat,
                   frames=batch.get("frames"), patches=batch.get("patches"),
                   **shard)
+    labels = batch["labels"]
+    sp = shard.get("sp_specs")
+    if sp is not None:        # scored on the rows q's sequence is split in
+        x = constrain(x, specs_mod.P(*sp[0][:3]))
+        labels = constrain(labels, specs_mod.P(*sp[0][:2]))
     unemb = params.get("unembed", params["embed"])
     return chunked_xent(lambda h, e: _logits(cfg, h, e), x, unemb,
-                        batch["labels"], chunk=xent_chunk)
+                        labels, chunk=xent_chunk)
 
 
 # --------------------------------------------------------------------------
@@ -478,16 +521,23 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
     """
     emb = params["embed"]
     x = constrain(embed(emb, tokens).to(torch.bfloat16), act_spec)
-    cache_len = int(cache_len)
-    positions = torch.full((1,), cache_len, dtype=torch.int32,
-                           device=x.device)
     window = cfg.sliding_window
-    if window:
-        slot = cache_len % window                  # ring-buffer slot
-        valid_len = min(cache_len + 1, window)
+    if isinstance(cache_len, torch.Tensor):
+        # a 0-d tensor (the dry run's traced int32 position): no host read
+        positions = cache_len.reshape(1).to(torch.int32)
+        slot = cache_len % window if window else cache_len
+        valid_len = (cache_len + 1).clamp(max=window) if window \
+            else cache_len + 1
     else:
-        slot = cache_len
-        valid_len = cache_len + 1
+        cache_len = int(cache_len)
+        positions = torch.full((1,), cache_len, dtype=torch.int32,
+                               device=x.device)
+        if window:
+            slot = cache_len % window              # ring-buffer slot
+            valid_len = min(cache_len + 1, window)
+        else:
+            slot = cache_len
+            valid_len = cache_len + 1
 
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
@@ -513,6 +563,6 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens,
             x = x + ffn(cfg, x, lp)
     x = norm(x, params["ln_f"], cfg.norm)
     unemb = params.get("unembed", emb)
-    logits = (x @ unemb.T)[:, 0, :cfg.vocab]
+    logits = dot(x, unemb.T)[:, 0, :cfg.vocab]
     return logits.float(), cache
 

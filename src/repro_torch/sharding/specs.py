@@ -261,3 +261,47 @@ def constrain(x, spec):
     if spec is None or not isinstance(x, DTensor):
         return x
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def shard_offset(t, dim: int) -> int:
+    """This rank's first global index along ``dim`` of a DTensor (0 for a
+    plain tensor): DTensor's ``torch.chunk`` layout, mesh dims in order,
+    the earlier one major."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return 0
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    length, off = t.shape[dim], 0
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            c = -(-length // mesh.size(i))
+            off += coord[i] * c
+            length = max(0, min(c, length - coord[i] * c))
+    return off
+
+
+def as_placed(local, mesh, placements, shape):
+    """``local``, this rank's shard, as a DTensor of global ``shape``
+    placed by ``placements`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride, acc = [], 1
+    for d in reversed(shape):
+        stride.append(acc)
+        acc *= max(d, 1)
+    return DTensor.from_local(local.contiguous(), mesh, tuple(placements),
+                              run_check=False, shape=shape,
+                              stride=tuple(reversed(stride)))
+
+
+def with_placements(t, fn):
+    """A DTensor redistributed to ``fn(i, placement)`` on each mesh dim
+    ``i`` (itself when nothing changes)."""
+    pl = [fn(i, p) for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else \
+        t.redistribute(t.device_mesh, pl)

@@ -43,6 +43,26 @@ def value_and_grad(loss_fn, params, batch, scale: float = 1.0):
                            for p, g in zip(ps, gs)]
 
 
+def microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows ``[i * b / n, (i + 1) * b / n)`` of x (b = ``x.shape[0]``), the
+    reference's ``reshape(n, b // n, ...)[i]``.  A DTensor split on its
+    rows is gathered for the cut and the microbatch split back the same
+    way (GSPMD spreads each microbatch over the data ranks): DTensor
+    cannot reshape a split dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rows = x.shape[0] // n
+    if not isinstance(x, DTensor) or not any(
+            p.is_shard(0) for p in x.placements):
+        return x.reshape(n, rows, *x.shape[1:])[i]
+    from repro_torch.sharding.specs import with_placements
+    pl, mesh = x.placements, x.device_mesh
+    whole = with_placements(x, lambda j, p: Replicate() if p.is_shard(0)
+                            else p)
+    part = whole.reshape(n, rows, *x.shape[1:])[i]
+    return with_placements(part, lambda j, p: pl[j] if pl[j].is_shard(0)
+                           else p)
+
+
 def make_train_step(model: Model, opt: AdamW,
                     tc: TrainConfig = TrainConfig(), grad_pspecs=None):
     """Returns train_step(params, opt_state, batch) -> (params, state,
@@ -64,8 +84,7 @@ def make_train_step(model: Model, opt: AdamW,
                                  f"not split into {n} microbatches")
         loss_acc, g_acc = torch.zeros((), dtype=torch.float32), None
         for i in range(n):
-            mb = {k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
-                  for k, x in batch.items()}
+            mb = {k: microbatch(x, n, i) for k, x in batch.items()}
             loss, gs = value_and_grad_(params, mb)
             loss_acc = loss_acc.to(loss.device) + loss
             if g_acc is None:

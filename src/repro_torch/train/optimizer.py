@@ -47,9 +47,12 @@ def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
                                  gnorm + 1e-9), max=1.0)
 
 
-def bias_correction(b: float, step: int) -> torch.Tensor:
-    """``1 - b ** step`` in f32 (CPU)."""
-    return 1 - _f32(b) ** _f32(step)
+def bias_correction(b: float, step) -> torch.Tensor:
+    """``1 - b ** step`` in f32: on the CPU for an int ``step``; a tensor
+    ``step`` (the reference's traced int32 counter, as the dry run passes
+    it) keeps its device."""
+    s = step.to(F32) if isinstance(step, torch.Tensor) else _f32(step)
+    return 1 - _f32(b) ** s
 
 
 def decayed(p: torch.Tensor) -> bool:

@@ -92,6 +92,30 @@ def test_naive_and_blockwise_match_jax(causal, window, block):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("impl", ["naive", "blockwise"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_attention_inner_q_offset_and_block_match_jax(impl, causal, window):
+    """``attention_inner`` with the reference's ``q_offset`` (the 24
+    queries are the last of 72 positions) and a ``block`` of 20, which does
+    not divide the 72 keys."""
+    q, k, v = _qkv(2, 24, 72, 4, 2, 32, seed=9)
+    kw = dict(causal=causal, window=window, q_offset=48, impl=impl)
+    if impl == "blockwise":
+        kw["block"] = 20
+    got = attention.attention_inner(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    **kw)
+    want = jattn.attention_inner(*(jnp.asarray(a) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    # the offset moves the mask: without it the rows see other keys
+    if causal:
+        kw.pop("q_offset")
+        moved = attention.attention_inner(
+            *(torch.from_numpy(a) for a in (q, k, v)), **kw)
+        assert not np.allclose(moved.numpy(), np.asarray(want), atol=1e-3)
+
+
 def test_flash_matches_model_blockwise():
     """As in the reference: the kernel's function agrees with the
     blockwise path."""

@@ -10,7 +10,9 @@ JAX package's results from ``torch_fixtures/dist_reference.npz``
 
 ``python tests/torch_dist.py production_specs OUT.json`` writes the
 port's spec trees on the two production meshes, under a fake process
-group of 512 ranks, for every registered config.
+group of 512 ranks, for every registered config; ``python
+tests/torch_dist.py dryrun OUT.json PART`` one part of the port's dry
+run (``launch/dryrun.py``) there.
 """
 from __future__ import annotations
 
@@ -348,6 +350,328 @@ def production_specs(path: str) -> None:
                     t: {p: spec_list(s) for p, s in tf.leaves(tree)}
                     for t, tree in rec.items()}
     M.shutdown()
+    pathlib.Path(path).write_text(json.dumps(out))
+
+
+# the archs ``sharded_paths`` runs (smoke configs), and the sequence-
+# parallel attention case (``sp``: q's sequence split as the dry run pins
+# it where the heads do not divide the model axis)
+SHARDED_ARCHS = ("granite-8b", "hymba-1.5b", "mixtral-8x22b", "mamba2-1.3b",
+                 "whisper-tiny")
+
+
+def sharded_paths(rank: int) -> dict:
+    """The dry run's DTensor paths with real values on a (2, 2) ("data",
+    "model") mesh: for each of ``SHARDED_ARCHS`` (smoke config, weights
+    ``carry.numpy_params(cfg, 0)``), the parameters and a 4 x 32 batch
+    placed by the spec trees and the model of ``dryrun.build_model``: the
+    loss and every gradient (``value_and_grad``), the loss of a
+    2-microbatch train step, and two decode steps (position a 0-d tensor;
+    the cache split on its sequence, then on its head dim) gathered, with
+    the plain one-device results beside them.  granite-8b also runs with
+    ``sp_specs`` forced (q's sequence split)."""
+    from repro_torch import carry
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train.loop import (TrainConfig, make_train_step,
+                                        value_and_grad)
+    from repro_torch.train.optimizer import AdamW
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    out = {}
+    cases = [(a, False) for a in SHARDED_ARCHS] + [("granite-8b", True)]
+    for arch, force_sp in cases:
+        cfg = get_config(arch).smoke()
+        shape = ShapeSpec("t", 32, 4, "train")
+        _, args, specs = D.build_step(cfg, shape, mesh, device="cpu",
+                                      seq_shard_decode=True, remat="none")
+        dmodel = D.build_model(cfg, mesh, remat="none")
+        dmodel.xent_chunk = 16
+        if force_sp:
+            dmodel.sp_specs = (sh.P(("data",), "model", None, None),
+                               sh.P(("data",), None, None, None))
+        # the one-device port with the same dispatch groups
+        model = Model(cfg, xent_chunk=16, moe_specs=None if
+                      dmodel.moe_specs is None else
+                      (None, None, dmodel.moe_specs[2]))
+        params = carry.params_from_jax(carry.numpy_params(cfg, 0),
+                                       device="cpu")
+        g = torch.Generator().manual_seed(3)
+        batch = model.make_inputs(shape, g)
+        dparams = sh.distribute(params, specs[0], mesh)
+        dbatch = sh.distribute(batch, specs[2], mesh)
+        rec = {}
+        with implicit_replication():
+            loss, grads = value_and_grad(model.loss, params, batch)
+            dloss, dgrads = value_and_grad(dmodel.loss, dparams, dbatch)
+            rec["loss"] = (float(loss), float(full(dloss)))
+            rec["grads"] = {k: (a.float(), full(b).float()) for (k, _), a, b
+                            in zip(tf.leaves(params), grads, dgrads)}
+            opt = AdamW(lr=1e-3)
+            mb = make_train_step(model, opt, TrainConfig(microbatches=2))
+            dmb = make_train_step(dmodel, opt, TrainConfig(microbatches=2),
+                                  grad_pspecs=specs[0])
+            p2 = {k: v.clone() for k, v in tf.leaves(params)}
+            p2 = tf.unflatten(p2.items())
+            dp2 = sh.distribute(p2, specs[0], mesh)
+            _, _, m = mb(p2, opt.init(p2), batch)
+            dst = sh.distribute(tf.unflatten(
+                (k, torch.zeros_like(v, dtype=torch.float32))
+                for k, v in tf.leaves(p2)), specs[0], mesh)
+            from repro_torch.train.optimizer import AdamWState
+            _, _, dm = dmb(dp2, AdamWState(0, dst, sh.tree_map(
+                torch.zeros_like, dst)), dbatch)
+            rec["micro_loss"] = (float(m["loss"]), float(full(dm["loss"])))
+            rec["micro_gnorm"] = (float(m["gnorm"]), float(full(dm["gnorm"])))
+            for seq in (True, False) if cfg.family != "encdec" else ():
+                cache = model.init_decode_state(4, 32, device="cpu")
+                cspec = sh.cache_pspecs(cfg, tf.decode_state_specs(
+                    cfg, 4, 32), mesh, sh.ShardingConfig(
+                        seq_shard_decode=seq))
+                dcache = sh.distribute(cache, cspec, mesh)
+                toks = batch["tokens"][:, :1]
+                dtoks = sh.distribute({"t": toks}, sh.batch_pspecs(
+                    {"t": toks}, mesh), mesh)["t"]
+                logits = []
+                for t in range(2):
+                    lg, cache = model.decode(params, cache, toks, t)
+                    pos = sh.distribute({"p": torch.tensor(
+                        t, dtype=torch.int32)}, {"p": sh.P()}, mesh)["p"]
+                    dlg, dcache = dmodel.decode(dparams, dcache, dtoks, pos)
+                    logits.append((lg.float(), full(dlg).float()))
+                tag = "" if seq else "/hd"
+                rec["decode_logits" + tag] = logits
+                rec["decode_cache" + tag] = {k: (cache[k].float(),
+                                                 full(dcache[k]).float())
+                                             for k in cache}
+        out[f"{arch}{'/sp' if force_sp else ''}"] = rec
+    return out
+
+
+def sharded_ops(rank: int, fault: str = "") -> dict:
+    """Each DTensor path of the dry run against its plain version in f32
+    on a (2, 2) ("data", "model") mesh, inputs drawn from one seed on every
+    rank and placed as the models place them: the result and every
+    input's gradient (of a fixed random weighting of the result),
+    gathered, as (plain, sharded) pairs.  ``fault="replicated_kv_grads"``
+    drops every ``to_local(grad_placements=)``: a rank's partial gradient
+    is then taken for the whole one."""
+    from torch.distributed.tensor import DTensor as _DT
+    if fault == "replicated_kv_grads":
+        to_local = _DT.to_local
+        _DT.to_local = lambda self, *, grad_placements=None: to_local(self)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe, ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import dot
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding.specs import P
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+    gen = torch.Generator().manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    def check(fn, inputs, specs, grads=True):
+        plain = [t.clone().requires_grad_(grads and t.is_floating_point())
+                 for t in inputs]
+        dist_ = [sh.distribute(t, s, mesh).detach().requires_grad_(
+            grads and t.is_floating_point()) if s is not None else t
+            for t, s in zip(inputs, specs)]
+        with implicit_replication():
+            y, yd = fn(*plain), fn(*dist_)
+            w = rnd(*y.shape)
+            rec = {"out": (y.detach(), full(yd).detach())}
+            if grads:
+                (y * w).sum().backward()
+                (yd * sh.distribute(w, P(), mesh)).sum().backward()
+                for i, (a, b) in enumerate(zip(plain, dist_)):
+                    if a.grad is not None:
+                        rec[f"grad{i}"] = (a.grad, full(b.grad))
+        return rec
+
+    out = {}
+    out["dot/fsdp+tp"] = check(dot, [rnd(4, 8, 16), rnd(16, 12)],
+                               [P("data", None, None), P("data", "model")])
+    out["dot/row"] = check(dot, [rnd(4, 8, 16), rnd(16, 12)],
+                           [P("data", None, "model"), P("model", "data")])
+    out["dot/experts"] = check(dot, [rnd(4, 6, 16), rnd(4, 16, 12)],
+                               [P(None, "data", None),
+                                P("model", "data", None)])
+    for name, (qs, ks, causal, window) in {
+            "heads": (P("data", None, "model", None),
+                      P("data", None, "model", None), True, 0),
+            "seq": (P("data", "model", None, None), P("data", None, None,
+                                                      None), True, 5),
+            "seq/bidirectional": (P("data", "model", None, None),
+                                  P("data", None, None, None), False, 0)
+    }.items():
+        out[f"attention/{name}"] = check(
+            lambda q, k, v: (attn.inner_on_shards if isinstance(q, DTensor)
+                             else attn.attention_inner)(
+                q, k, v, causal=causal, window=window, impl="blockwise"),
+            [rnd(4, 16, 4, 8), rnd(4, 16, 2, 8), rnd(4, 16, 2, 8)],
+            [qs, ks, ks])
+    A = -torch.rand(4, generator=gen) - 0.5
+    out["ssd"] = check(
+        lambda x, dt, a, b, c: (ssm.ssd_on_shards if isinstance(x, DTensor)
+                                else ssm.ssd_chunked)(x, dt, a, b, c, 8,
+                                                      impl="blockwise")[0],
+        [rnd(4, 32, 4, 8), torch.rand(4, 32, 4, generator=gen) * 0.1, A,
+         rnd(4, 32, 8), rnd(4, 32, 8)],
+        [P("data", None, "model", None), P("data", None, None), P(),
+         P("data", None, None), P("data", None, None)])
+    out["ssd/state"] = check(
+        lambda x, dt, a, b, c: (ssm.ssd_on_shards if isinstance(x, DTensor)
+                                else ssm.ssd_chunked)(x, dt, a, b, c, 8,
+                                                      impl="blockwise")[1],
+        [rnd(4, 32, 4, 8), torch.rand(4, 32, 4, generator=gen) * 0.1, A,
+         rnd(4, 32, 8), rnd(4, 32, 8)],
+        [P("data", None, "model", None), P("data", None, None), P(),
+         P("data", None, None), P("data", None, None)])
+    out["ssd/decode"] = check(
+        lambda s, dt, a, b, x, c: (ssm.recur_on_shards if isinstance(
+            s, DTensor) else ssm.recur)(s, dt, a, b, x, c)[0],
+        [rnd(4, 4, 8, 8), torch.rand(4, 4, generator=gen) * 0.1, A,
+         rnd(4, 8), rnd(4, 4, 8), rnd(4, 8)],
+        [P("data", "model", None, None), P("data", None), P(),
+         P("data", None), P("data", None, None), P("data", None)],
+        grads=False)
+    toks = torch.randint(-3, 70, (4, 8), generator=gen)
+    out["embed"] = check(tf.embed, [rnd(64, 16), toks],
+                         [P("model", "data"), P("data", None)])
+    cfg = get_config("mixtral-8x22b").smoke()
+    p = {"router": rnd(64, 4), "w_in": rnd(4, 64, 128) * 0.1,
+         "w_gate": rnd(4, 64, 128) * 0.1, "w_out": rnd(4, 128, 64) * 0.1}
+    names = list(p)
+    pspec = {"router": P("data", None), "w_in": P("model", "data", None),
+             "w_gate": P("model", "data", None),
+             "w_out": P("model", None, "data")}
+    for tag, specs in (("groups", (P("data", None, None, None),
+                                   P("data", None, None), 2)),
+                       ("one group", None)):
+        out[f"moe/{tag}"] = check(
+            lambda x, *w: moe.moe_ff(x, dict(zip(names, w)), cfg,
+                                     specs=specs),
+            [rnd(4, 32, 64)] + [p[k] for k in names],
+            [P("data", None, None)] + [pspec[k] for k in names])
+    cache = rnd(4, 16, 2, 8)
+    new = rnd(4, 1, 2, 8)
+
+    def write(c, n):
+        c = c.clone() if not isinstance(c, DTensor) else c
+        pos = torch.tensor(9) if not isinstance(c, DTensor) else \
+            sh.distribute(torch.tensor(9), P(), mesh)
+        attn.write_cache(c, n, pos)
+        return c
+    out["write_cache/seq"] = check(write, [cache, new],
+                                   [P("data", "model", None, None),
+                                    P("data", None, None, None)],
+                                   grads=False)
+    out["write_cache/hd"] = check(write, [cache, new],
+                                  [P("data", None, None, "model"),
+                                   P("data", None, None, None)], grads=False)
+    for eq, a_shape in (("bqhgd,bshd->bhgqs", (4, 1, 2, 2, 8)),
+                        ("bhgqs,bshd->bqhgd", (4, 2, 2, 1, 16))):
+        for tag, cs in (("seq", P("data", "model", None, None)),
+                        ("hd", P("data", None, None, "model"))):
+            out[f"decode_einsum/{eq}/{tag}"] = check(
+                lambda a, c: (attn._einsum_on_cache if isinstance(c, DTensor)
+                              else torch.einsum)(eq, a, c),
+                [rnd(*a_shape), cache], [P(), cs], grads=False)
+    return {k: {n: (a.float(), b.float()) for n, (a, b) in v.items()}
+            for k, v in out.items()}
+
+
+# the reference's compiled cells (``make_dryrun_reference.py``), split
+# into parts that run in processes side by side
+DRYRUN_PARTS = (
+    (("granite-8b", "train_4k", "pod2_2x16x16"),),
+    (("granite-8b", "train_4k", "pod1_16x16"),
+     ("whisper-tiny", "train_4k", "pod1_16x16")),
+    (("mamba2-1.3b", "prefill_32k", "pod1_16x16"),
+     ("hymba-1.5b", "decode_32k", "pod1_16x16")),
+    (("mixtral-8x22b", "decode_32k", "pod1_16x16"),),
+)
+DRYRUN_DEFAULTS = dict(fsdp=True, remat=None, microbatches=None,
+                       seq_shard_decode=True, moe_ep=True, ssm_chunk=None,
+                       act_sp=False, fsdp_gather_in_scan=False, pp=0)
+
+
+def dryrun(path: str, part: str) -> None:
+    """The port's dry run on the CPU under a fake process group of 512
+    ranks, with the reference's ``main`` defaults, as JSON: part ``grid``:
+    every (arch x shape x mesh) cell's status, ``model_flops`` and, where
+    it runs, per-device argument bytes from the spec trees, and a planted
+    fault (``build_step`` raising: the cell's row and ``main``'s exit
+    code); part ``0``-``3``: the cells of ``DRYRUN_PARTS`` run whole."""
+    from repro_torch.configs.base import SHAPES, all_configs, supports
+    from repro_torch.interconnect.cost_model import model_flops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    torch.set_num_threads(1)
+    out = {}
+    if part == "grid":
+        real = D.build_step
+
+        def broken(*a, **k):
+            raise RuntimeError("planted fault")
+        D.build_step = broken
+        try:
+            rc = D.main(["--arch", "whisper-tiny", "--shape", "train_4k",
+                         "--mesh", "pod1", "--device", "cpu"])
+        finally:
+            D.build_step = real
+        out["fault"] = {"main_rc": rc}
+    M.init_fake(512)
+    try:
+        meshes = dict(D.make_meshes("both", "cpu"))
+        cfgs = all_configs()
+        if part == "grid":
+            D.build_step = broken
+            try:
+                out["fault"]["row"] = D.run_cell(
+                    cfgs["granite-8b"], SHAPES["train_4k"],
+                    meshes["pod1_16x16"], "pod1_16x16", device="cpu")
+            finally:
+                D.build_step = real
+            cells = {}
+            for arch, cfg in sorted(cfgs.items()):
+                for sname, shape in SHAPES.items():
+                    for mname, mesh in meshes.items():
+                        rec = {"status": supports(cfg, shape) or "RUN",
+                               "model_flops": model_flops(cfg, shape)}
+                        if rec["status"] == "RUN":
+                            rec["arg_bytes_per_dev"] = D.arg_bytes_per_dev(
+                                cfg, shape, mesh, device="cpu",
+                                **DRYRUN_DEFAULTS)
+                        cells[f"{arch}/{sname}/{mname}"] = rec
+            out["grid"] = cells
+        else:
+            rows = {}
+            for arch, sname, mname in DRYRUN_PARTS[int(part)]:
+                rows[f"{arch}/{sname}/{mname}"] = D.run_cell(
+                    cfgs[arch], SHAPES[sname], meshes[mname], mname,
+                    device="cpu", **DRYRUN_DEFAULTS)
+            out["rows"] = rows
+    finally:
+        M.shutdown()
     pathlib.Path(path).write_text(json.dumps(out))
 
 
