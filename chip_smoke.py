@@ -105,8 +105,12 @@ order in which they run is given after the list):
 13. the closed-loop golden ``memcl_wireless_4c4m_load03`` against
     ``tests/goldens`` (the memory fields too);
 14. fig7 at paper size: the gemma-7b one-shot and the compiled psum
-    traces of ``benchmarks/fig7_ml_traces.py`` (16 devices on 4C4M, the
-    psum step's HLO text from ``tests/torch_fixtures/fig7_psum.hlo.txt``)
+    traces of ``benchmarks/fig7_ml_traces.py`` (16 devices on 4C4M; the
+    compiled trace built from the port's own psum step,
+    ``workloads/graph.py::psum_trace``, which must equal
+    ``trace_from_hlo`` of ``tests/torch_fixtures/fig7_psum.hlo.txt``
+    phase by phase and message by message, and reject the step's two
+    sums left uncombined)
     on three fabrics (the one-shot trace on two: its substrate lane
     drains last, at 11 008 cycles, where the others drain by 3 840, and
     the interposer lane runs the same wireline program), a 96 000-cycle
@@ -165,7 +169,7 @@ order in which they run is given after the list):
     layer by layer (a one-ulp change can move a token to another expert),
     serving; faults as phase 9;
 20. the scatter engine (``core/simulator_ref.py``) against the gather
-    engine on the card: ten cases of 200 cycles (substrate, interposer and
+    engine on the card: ten cases of 140 cycles (substrate, interposer and
     wireless 4C4M under uniform traffic, the matching and single media,
     the token MAC, closed-loop memory, fig9's small multicast trace, the
     lossy channel at 16 dB, a living channel), every state leaf equal but
@@ -247,17 +251,46 @@ order in which they run is given after the list):
     storages of the parameters, AdamW state and batch of that step on
     the card, its dot FLOPs equal to ``StepAnalysis`` over one real
     step; the dry run's roofline terms and peak printed beside phase
-    24's measured step and peak, with the achieved TFLOP/s.
+    24's measured step and peak, with the achieved TFLOP/s; (c) in (a)'s
+    process, hymba-1.5b ``train_4k`` on the 16 x 16 mesh with ``--pp 4``
+    (16 stages of 2 layers, 4 microbatches) against
+    ``tests/torch_fixtures/dryrun_flags_reference.json``: status,
+    argument bytes exact, dot FLOPs within ``DRYRUN_FLOPS_TOL``, and its
+    hand-offs counted as 2 (M + S - 1) = 38 collective-permutes of the
+    rank's f32 boundary buffer (104 857 600 bytes each), printed beside
+    the reference's 39 trip-expanded ones;
+28. the port's examples at their JAX scripts' settings, beside fig9
+    (host-bound): ``examples/torch_quickstart.py`` (4C4M in three fabrics
+    at loads 1.0 and 0.05, 4 000 cycles with 800 of warm-up, one batched
+    call) against ``tests/torch_fixtures/quickstart_reference.json``'s
+    ``script`` rows (the reference's ``run_point``; integers exact,
+    floats rel 1e-6; the rows held against another fabric's must be
+    rejected), ``examples/torch_serve_lm.py`` and
+    ``examples/torch_train_lm.py`` (the ~100M hymba member, 300 steps,
+    checkpoints every 20: the loss falls); no kernel launch;
+29. gemma-7b at full size (28 layers, d 3 072, 16 heads of 256, vocab
+    256 000): the forward at B 2 x S 4096 (28 tensor-core flash launches
+    at hd 256) against ``impl="naive"`` by loss and logit rows, and
+    serving, as phase 9;
+30. starcoder2-7b at full size (32 layers, LayerNorm, non-gated GELU, 36
+    query heads over 4 kv heads of 128), as phase 29;
+31. dbrx-132b at full width and ``DBRX_LAYERS`` of its 40 layers (16
+    experts, top 4), held layer by layer as phase 19;
+32. llama3-405b at full width and ``LLAMA3_LAYERS`` of its 126 layers
+    (d 16 384, 128 query heads over 8), as phase 29.
 
 Phase 15 (fig9) runs in a second process on the same card (``python3
 chip_smoke.py --phase fig9``, ``Fig9Apart``): one host thread's dispatch
 bounds it for 6-10 minutes while the card idles.  This process runs
-phases 1-11, then 12-14 and 20-21 (the other host-bound simulator
-phases) beside fig9, prints fig9's output when its process ends
-(failing if it failed), then runs 16-19 and 22-27 alone on the card
-(27 (a) in a process of its own, beside (b)).  So the walls of phases
-12-15 and 20-21 are taken beside another process; every kernel and
-model timing is taken with the card to itself.
+phases 1-3 and 6-11 alone, then starts fig9's process and a third one
+for 27 (a) and (c) (``DryrunApart``: it allocates nothing on the card
+and runs no kernel), runs 4-5, 12-14, 20-21 and 28 (the other
+host-bound phases) beside them, prints fig9's output when its process
+ends (failing if it failed), then runs 16-19, 29-32 and 22-27.  So the
+walls of phases 4-5, 12-15, 20-21 and 28 (the examples, train_lm's step
+times among them) and of 27 (a) and (c) are taken beside another
+process; the kernel timings (phases 3, 6 and 7) and the model phases
+8-11, 16-19, 22-26 and 29-32 are taken with the card to themselves.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
@@ -274,10 +307,11 @@ Each prints wall seconds, points/s, lane-cycles/s and the slowest lane's
 kernel's launch count after its run (no kernel of this repository runs
 on the simulator).
 
-Phases 8 and 9 also plant two faults in the flash entry point (output
-zeroed; keys 128 and more back dropped), phases 10 and 11 two in the SSD
-intra-chunk entry point (``y_diag`` zeroed; the decay dropped, L = 1 on
-the lower triangle), and fail unless their logit checks reject each.
+Phases 8, 9 and 29-32 also plant two faults in the flash entry point
+(output zeroed; keys 128 and more back dropped), phases 10 and 11 two in
+the SSD intra-chunk entry point (``y_diag`` zeroed; the decay dropped,
+L = 1 on the lower triangle), and fail unless their logit checks reject
+each.
 Each path is driven with every kernel's launch count set to 0 just before
 and read just after.  It prints the card's name and power limit and a JSON line of kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``.  Without
@@ -458,7 +492,9 @@ FLASH_CASES = [   # tests/test_kernels_flash.py
 # versions the models run) are held to the test cases' 2e-5.
 FLASH_PATH = {    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name)
     "granite-8b": (2, 4096, 4096, 32, 8, 128, True, 0, "bfloat16"),
-    "gemma-7b": (1, 4096, 4096, 16, 16, 256, True, 0, "bfloat16"),
+    "gemma-7b": (2, 4096, 4096, 16, 16, 256, True, 0, "bfloat16"),
+    "starcoder2-7b": (2, 4096, 4096, 36, 4, 128, True, 0, "bfloat16"),
+    "llama3-405b": (2, 4096, 4096, 128, 8, 128, True, 0, "bfloat16"),
     "hymba-1.5b": (2, 4096, 4096, 25, 5, 64, True, 2048, "bfloat16"),
     "mixtral-8x22b": (2, 4096, 4096, 48, 8, 128, True, 0, "bfloat16"),
     # whisper-tiny's encoder: non-causal, 1 500 frames (ragged last tile)
@@ -473,7 +509,8 @@ FLASH_PATH = {    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name)
 }
 # the path shapes also timed against the plain version and SDPA
 FLASH_LIBRARY = ("granite-8b", "hymba-1.5b", "mixtral-8x22b",
-                 "whisper-tiny", "llava-next-mistral-7b")
+                 "whisper-tiny", "llava-next-mistral-7b", "gemma-7b",
+                 "starcoder2-7b", "llama3-405b")
 FLASH_PATH_TOL = {"bfloat16": (1e-3, 2.0 ** -7), "float32": (2e-5, 2e-5)}
 SSD_CASES = [     # tests/test_kernels_ssd.py: (BH, c, Q, P, N, dtype, tol)
     (2, 2, 16, 8, 16, "float32", 1e-4),
@@ -510,6 +547,11 @@ SSD_TC_ROUNDED_TOL = 2.0 ** -7
 # mixtral-8x22b's depth on one 80 GB card: 8 of 56 layers (~40 GB of
 # weights; each layer's experts alone are ~4.8 GB)
 MIXTRAL_LAYERS = 8
+# depth cuts for one 80 GB card, beside the naive run's peak
+DBRX_LAYERS = 6          # of 40: ~6.5 GB a layer
+LLAMA3_LAYERS = 2        # of 126: ~6.4 GB a layer + 8.4 GB of embeddings,
+#                          and ~41 GiB of f32 scores in the naive attention
+#                          (at 4 layers it ran out of memory there)
 GRANITE_LOSS_RTOL = 1e-3     # 2 layers, port on the card vs JAX on the CPU
 FULL_LOSS_RTOL = 1e-3        # pallas (f32 softmax) vs naive (bf16 p)
 # Logits, relative to the largest reference logit.  The loss of random
@@ -1502,6 +1544,7 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
         t_naive = time.perf_counter() - t
         lg_p = logits_at(model, params, batch, positions)
         lg_n = logits_at(naive, params, batch, positions)
+        peak_all = torch.cuda.max_memory_allocated(dev)
     if not (abs(loss_p - loss_n) <= FULL_LOSS_RTOL * abs(loss_n)
             and math.isfinite(loss_p)):
         raise AssertionError(f"{tag} loss: pallas {loss_p} vs naive "
@@ -1548,7 +1591,8 @@ def phase_full(dev, kmods, smi, tag: str, arch: str, expect: dict,
                forward_s=t_fwd, forward_tokens_per_s=B * S / t_fwd,
                naive_forward_s=t_naive, launches=path,
                **({"flash_launches": by_kind} if by_kind else {}),
-               peak_gib=peak_fwd / 2**30, power=smi, **extra)
+               peak_gib=peak_fwd / 2**30,
+               peak_gib_with_naive=peak_all / 2**30, power=smi, **extra)
     if forced is not None:
         fwd.update({f"forward_s_{forced[0]}": forced_s[0],
                     f"forward_tokens_per_s_{forced[0]}": B * S / forced_s[0],
@@ -1791,6 +1835,11 @@ def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE,
     fx = figures.fixture("fig7_reference.json")
     sim = SimParams(**fx["sim"])
     traces = figures.fig7_traces(names)
+    if "compiled" in names:
+        # the compiled trace from the port's own step, which must be the
+        # one of the reference's HLO text
+        traces = [(n, own_compiled_trace(figures, tr, dev) if
+                   n == "compiled" else tr) for n, tr in traces]
     for (name, tr), want in zip(traces, [t for t in fx["traces"]
                                          if t["name"] in names]):
         assert want["name"] == name
@@ -1865,6 +1914,44 @@ def phase_fig7(dev, kmods, smi, names=FIG7_SMOKE,
                power=smi)
     say("fig7", json.dumps(rec))
     return rec
+
+
+def own_compiled_trace(figures, hlo_trace, dev):
+    """fig7's compiled trace built from the port's psum step
+    (``workloads/graph.py``), scaled as ``figures.fig7_traces`` scales it:
+    it must equal ``hlo_trace`` (from ``fig7_psum.hlo.txt``) phase by
+    phase, and the step with its two sums left uncombined must not."""
+    import torch
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.core.constants import Fabric
+    from repro_torch.core.topology import build_xcym
+    from repro_torch.workloads import graph
+    from repro_torch.workloads.mapping import DeviceMap
+    dm = DeviceMap(build_xcym(figures.N_CHIPS, figures.N_MEM,
+                              Fabric.WIRELESS), figures.N_DEV)
+
+    def same(tr) -> bool:
+        return (tr.name, tr.phases, tr.meta) == \
+            (hlo_trace.name, hlo_trace.phases, hlo_trace.meta)
+
+    own = figures.autoscale(graph.psum_trace(dm, dev))
+    if not same(own):
+        raise AssertionError(f"fig7: the port's psum trace {own.describe()}"
+                             f" != the HLO's {hlo_trace.describe()}")
+
+    def uncombined(x, w, group):
+        y = torch.tanh(x @ w)
+        return (funcol.wait_tensor(funcol.all_reduce(y, "sum", group)),
+                funcol.wait_tensor(funcol.all_reduce(y @ w.T, "sum", group)))
+
+    with swapped(graph, "psum_step", uncombined):
+        bad = figures.autoscale(graph.psum_trace(dm, dev))
+    if same(bad):
+        raise AssertionError("fig7: two uncombined sums give the HLO's "
+                             "trace")
+    say("fig7", f"compiled trace from the port's step: {own.describe()}; "
+        f"uncombined: {bad.describe()} (rejected)")
+    return own
 
 
 def _i32s(rec: dict, key: str, shape) -> "np.ndarray":
@@ -2062,10 +2149,41 @@ def phase_moe(dev, kmods, smi) -> dict:
     return paths
 
 
+NEW_ARCHS = (("gemma-7b", 0, False), ("starcoder2-7b", 0, False),
+             ("dbrx-132b", DBRX_LAYERS, True),
+             ("llama3-405b", LLAMA3_LAYERS, False))
+
+
+def phase_archs(dev, kmods, smi) -> dict:
+    """Phases 29-32: gemma-7b and starcoder2-7b at full size, dbrx-132b
+    and llama3-405b at full width and a cut depth, each forward held
+    against ``impl="naive"`` (dbrx's layer by layer, its MoE layers as
+    mixtral's), one tensor-core flash launch a layer at the model's
+    heads and sequence, serving, and the flash entry point's two faults.
+    Returns each forward's launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    paths = {}
+    for arch, layers, by_layer in NEW_ARCHS:
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        n = layers or cfg.n_layers
+        tag = arch.split("-")[0]
+        full = phase_full(dev, kmods, smi, tag, arch,
+                          per_layer(n, *FLASH_TC), flash_faults(ops),
+                          POSITIONS_FULL, by_layer=by_layer, layers=layers,
+                          split={("tensor_core", True, 2 * cfg.n_heads, 4096,
+                                  4096): n})
+        name = f"{arch} forward" + (f", {n} layers" if layers else "")
+        paths[name] = full["forward"]["launches"]
+        say(tag, f"{name}: wall {time.perf_counter() - t:.1f} s")
+    return paths
+
+
 # ---------------------------------------------------------------------------
 # the scatter engine and the paper's fig2-fig6 and ablations (phases 20-21)
 
-SCATTER_CYCLES = 200
+SCATTER_CYCLES = 140     # one living window boundary (128) past warm-up
 SCATTER_CASES = ("substrate", "interposer", "wireless", "matching", "single",
                  "token", "mem_on", "multicast", "phy_on", "living")
 SCATTER_SKIP = {"out_wo", "mc_src"}   # the engines' own encodings
@@ -2943,6 +3061,7 @@ def phase_pp(dev, kmods, smi) -> dict:
 DRYRUN_CELLS = (("whisper-tiny", "train_4k", "pod1_16x16"),
                 ("hymba-1.5b", "decode_32k", "pod1_16x16"))
 DRYRUN_FLOPS_TOL = 0.10        # the port's dot FLOPs against the HLO count
+DRYRUN_PP = ("hymba-1.5b", "train_4k", "pod1_16x16", 4)   # phase 27 (c)
 
 
 def dryrun_fake() -> dict:
@@ -2973,9 +3092,17 @@ def dryrun_fake() -> dict:
                 for a, s, m in DRYRUN_CELLS]
         wall = time.perf_counter() - t
         cells_max = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        a, s, m, pp = DRYRUN_PP
+        t = time.perf_counter()
+        pp_row = dryrun.run_cell(get_config(a), SHAPES[s], meshes[m], m,
+                                 device=dev, seq_shard_decode=True, pp=pp)
+        pp_wall = time.perf_counter() - t
+        pp_max = torch.cuda.max_memory_allocated(dev)
     finally:
         mesh.shutdown()
-    return dict(rows=rows, wall_s=wall, allocated_before=before,
+    return dict(rows=rows, wall_s=wall, pp_row=pp_row, pp_wall_s=pp_wall,
+                pp_max_allocated=pp_max, allocated_before=before,
                 allocated_after=torch.cuda.memory_allocated(dev),
                 max_allocated_setup=setup_max, max_allocated=cells_max)
 
@@ -3013,27 +3140,61 @@ def dryrun_errors(row: dict, fx: dict) -> list:
     return bad
 
 
+def dryrun_pp_errors(row: dict, ref: dict) -> list:
+    """What in phase 27 (c)'s row disagrees with the reference's ``pp``
+    cell (``dryrun_flags_reference.json``): status, argument bytes exact,
+    dot FLOPs within ``DRYRUN_FLOPS_TOL``, the hand-offs 2 (M + S - 1)
+    collective-permutes over the 16 stages (stride 1) of the rank's f32
+    boundary buffer each."""
+    from repro_torch.configs.base import SHAPES, get_config
+    if row["status"] != ref["status"]:
+        return [f"status {row['status'][:300]} != {ref['status']}"]
+    arch, shape, _, M = DRYRUN_PP
+    cfg, sh = get_config(arch), SHAPES[shape]
+    S, data = 16, 16
+    each = sh.global_batch // M * sh.seq_len * cfg.d_model * 4 // data
+    bad = []
+    if row["read_arg_bytes_per_dev"] != ref["argument_size_in_bytes"] or \
+            row["arg_bytes_per_dev"] != ref["declared_arg_bytes_per_dev"]:
+        bad.append(f"arg bytes {row['read_arg_bytes_per_dev']} / "
+                   f"{row['arg_bytes_per_dev']} != "
+                   f"{ref['argument_size_in_bytes']}")
+    ratio = row["flops_per_dev"] / ref["flops_per_dev"]
+    if not abs(ratio - 1) <= DRYRUN_FLOPS_TOL:
+        bad.append(f"flops ratio {ratio}")
+    n, payload, _ = row["calls_by_group"].get(
+        f"collective-permute g={S} stride=1", (0, 0, 0))
+    if (n, payload) != (2 * (M + S - 1), 2 * (M + S - 1) * each):
+        bad.append(f"hand-offs {n} permutes of {payload} B, want "
+                   f"{2 * (M + S - 1)} of {each} B each")
+    return bad
+
+
 class DryrunApart:
-    """Phase 27 (a) in a second process (``python3 chip_smoke.py --phase
-    dryrun``), so that its fake group of 512 ranks never meets the NCCL
-    group of phases 25-27 (b); ``join`` returns its record."""
+    """Phase 27 (a) and (c) in a second process (``python3 chip_smoke.py
+    --phase dryrun``), so that its fake group of 512 ranks never meets
+    the NCCL group of phases 25-27 (b); its output goes to a temporary
+    file; ``join`` returns its record."""
 
     def __init__(self):
         import tempfile
         self.out = tempfile.NamedTemporaryFile(mode="w+", suffix=".json")
+        self.log = tempfile.TemporaryFile(mode="w+")
         self.proc = subprocess.Popen(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
              "--phase", "dryrun", self.out.name], cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=self.log, stderr=subprocess.STDOUT)
 
     def join(self, timeout: float) -> dict:
         try:
-            log, _ = self.proc.communicate(timeout=timeout)
+            self.proc.wait(timeout=timeout)
         finally:
             self.kill()
         if self.proc.returncode:
+            self.log.seek(0)
             raise AssertionError(f"phase 27 (a) failed (exit "
-                                 f"{self.proc.returncode}): {log[-3000:]}")
+                                 f"{self.proc.returncode}): "
+                                 f"{self.log.read()[-3000:]}")
         self.out.seek(0)
         return json.loads(self.out.read())
 
@@ -3145,6 +3306,28 @@ def phase_dryrun(dev, smi, apart: DryrunApart, step24: dict) -> dict:
             coll_by_op=row.get("coll_by_op"),
             ref_coll_by_op=ref.get("coll_by_op"),
             compile_s=row.get("compile_s")))
+    pp_ref = {r["name"]: r for r in json.loads(
+        (ROOT / "tests" / "torch_fixtures" / "dryrun_flags_reference.json")
+        .read_text())["cells"]}["pp"]
+    row = grid["pp_row"]
+    pp_rec = dict(
+        cell=" ".join(str(c) for c in DRYRUN_PP), status=row["status"][:200],
+        errors=dryrun_pp_errors(row, pp_ref) + (
+            [f"{grid['pp_max_allocated']} B allocated on the card"]
+            if grid["pp_max_allocated"] else []),
+        wall_s=grid["pp_wall_s"],
+        flops=row.get("flops_per_dev"), ref_flops=pp_ref["flops_per_dev"],
+        flops_ratio=row.get("flops_per_dev", 0) / pp_ref["flops_per_dev"],
+        read_arg_bytes=row.get("read_arg_bytes_per_dev"),
+        ref_argument_size=pp_ref["argument_size_in_bytes"],
+        calls_by_group=row.get("calls_by_group"),
+        ref_coll_counts=pp_ref["coll_counts"],
+        ref_permutes=[(p["shape"], p["trip"]) for p in pp_ref["permutes"]],
+        coll_by_op=row.get("coll_by_op"), ref_coll_by_op=pp_ref["coll_by_op"])
+    say("dryrun-pp", json.dumps(pp_rec))
+    if pp_rec["errors"]:
+        raise AssertionError(f"phase 27 (c) against the reference: "
+                             f"{pp_rec['errors']}")
     fake_rec = dict(cells=cells, wall_s=grid["wall_s"],
                     allocated_before=grid["allocated_before"],
                     allocated_after=grid["allocated_after"],
@@ -3196,13 +3379,70 @@ def models_8_to_11(dev, kmods, smi) -> dict:
     return paths
 
 
+def phase_goldens_fig2(dev, kmods, smi) -> None:
+    """Phases 4-5: the four open-loop goldens and the fig2 grid at paper
+    width against their fixtures (no kernel of this repository runs)."""
+    import torch
+    from repro_torch.core.constants import Fabric, SimParams
+    from repro_torch.core.sweep import SweepPoint, run_sweep_batched
+    sim_g = SimParams(cycles=1500, warmup=300, seed=0)
+    pts = [SweepPoint(4, 4, Fabric(c["fabric"]), load=c["load"],
+                      p_mem=c["p_mem"], app=c.get("app"), sim=sim_g)
+           for c in GOLDEN_CASES.values()]
+    t = time.perf_counter()
+    ms = run_sweep_batched(pts, device=dev)
+    dt_g = time.perf_counter() - t
+    for (gname, _), m in zip(GOLDEN_CASES.items(), ms):
+        gold = json.loads((ROOT / "tests" / "goldens" / f"{gname}.json")
+                          .read_text())
+        assert gold["sim"] == {"cycles": 1500, "warmup": 300, "seed": 0}
+        check_metrics(gname, m, gold["metrics"])
+    say("goldens", f"4 golden points match ({dt_g:.2f} s, one batch)")
+
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "fig2_reference.json").read_text())
+    sim_p = SimParams(**fx["sim"])
+    fabs = [Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS]
+    pts = [SweepPoint(4, 4, f, load=1.0, p_mem=0.2, sim=sim_p) for f in fabs]
+    zero(kmods)
+    t = time.perf_counter()
+    ms = run_sweep_batched(pts, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sim_launches = counts(kmods)
+    res = dict(zip(fabs, ms))
+    for f in fabs:
+        check_metrics(f"fig2 {f.name}", res[f], fx["points"][f.name]["metrics"])
+    w, i, s = res[Fabric.WIRELESS], res[Fabric.INTERPOSER], \
+        res[Fabric.SUBSTRATE]
+    bw_check = w.bw_gbps_core > i.bw_gbps_core > s.bw_gbps_core
+    en_check = w.avg_pkt_energy_pj < i.avg_pkt_energy_pj \
+        < s.avg_pkt_energy_pj
+    say("fig2", json.dumps(dict(
+        wall_s=wall, points=len(pts), points_per_s=len(pts) / wall,
+        lane_cycles_per_s=len(pts) * sim_p.cycles / wall,
+        batch_steps_per_s=sim_p.cycles / wall,
+        wireless_highest_bw=bw_check, wireless_lowest_energy=en_check,
+        kernel_launches_on_path=sim_launches,
+        bw_gbps_core={f.name: res[f].bw_gbps_core for f in fabs},
+        avg_pkt_energy_pj={f.name: res[f].avg_pkt_energy_pj for f in fabs},
+        power=smi)))
+    # the paper's grid runs no kernel of this repository: no kernel may
+    # have been expected on it, and none ran
+    if any(sim_launches.values()):
+        raise AssertionError(f"unexpected kernel launches: {sim_launches}")
+
+
 def simulator_beside_fig9(dev, kmods, smi) -> None:
-    """Phases 12-14 and 20-21, the other simulator phases, while fig9
-    runs in its own process: like fig9 they are bound by the host's
-    dispatch while the card idles, so neither slows the other much (the
-    model phases, which keep the card busy, run alone)."""
-    # the simulator's closed-loop memory and trace paths (no kernel of
-    # this repository runs on them; each phase reads the counts after)
+    """Phases 4-5, 12-14, 20-21 and 28, the other simulator phases and
+    the examples, while fig9 runs in its own process: like fig9 they are
+    bound by the host's dispatch while the card idles, so neither slows
+    the other much (the model phases, which keep the card busy, run
+    alone)."""
+    # the goldens, fig2, the simulator's closed-loop memory and trace
+    # paths (no kernel of this repository runs on them; each phase reads
+    # the counts after)
+    phase_goldens_fig2(dev, kmods, smi)
     phase_fig8(dev, kmods, smi)
     phase_memcl(dev, kmods, smi)
     phase_fig7(dev, kmods, smi)
@@ -3210,6 +3450,87 @@ def simulator_beside_fig9(dev, kmods, smi) -> None:
     # the ablations at the smoke's cut
     phase_scatter(dev, kmods, smi)
     phase_paper_figs(dev, kmods, smi, "cut")
+    phase_examples(dev, kmods, smi)
+
+
+QUICKSTART_FIELDS = (("pkts_delivered", "flits_delivered", "flits_injected",
+                      "cycles_run", "drain_cycle"),
+                     ("offered_load", "throughput", "bw_gbps_core",
+                      "avg_pkt_latency", "avg_pkt_energy_pj",
+                      "energy_pj_bit"))
+
+
+def check_quickstart(got: list, want: list) -> None:
+    """``torch_quickstart.rows``' metrics against the fixture's points
+    (fabric-major, loads 1.0 then 0.05): integers exact, floats rel 1e-6
+    (NaN where the fixture has NaN)."""
+    ints, floats = QUICKSTART_FIELDS
+    ms = [(f.name, m) for f, sat, low in got for m in (sat, low)]
+    bad = []
+    for (fab, m), w in zip(ms, want):
+        if fab != w["fabric"]:
+            bad.append(f"{fab} != {w['fabric']}")
+        for k in ints:
+            if int(getattr(m, k)) != w["metrics"][k]:
+                bad.append(f"{fab} {w['load']} {k}")
+        for k in floats:
+            a, b = float(getattr(m, k)), w["metrics"][k]
+            if not (math.isnan(a) and math.isnan(b) or close(a, b)):
+                bad.append(f"{fab} {w['load']} {k}: {a} vs {b}")
+    if bad:
+        raise AssertionError(f"quickstart against the reference: {bad}")
+
+
+def phase_examples(dev, kmods, smi) -> dict:
+    """Phase 28: ``examples/torch_quickstart.py``, ``torch_serve_lm.py``
+    and ``torch_train_lm.py`` at their JAX scripts' settings (train
+    without ``--fast``), their output kept to the end of each; the
+    quickstart rows against the fixture's ``script`` set."""
+    import io
+    import torch
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+    import torch_serve_lm
+    import torch_train_lm
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "quickstart_reference.json").read_text())["script"]
+    sim = torch_quickstart.SIM
+    if fx["sim"] != {"cycles": sim.cycles, "warmup": sim.warmup,
+                     "seed": sim.seed}:
+        raise AssertionError(f"quickstart budget {sim} != {fx['sim']}")
+    rec = {}
+    zero(kmods)
+    t = time.perf_counter()
+    got = torch_quickstart.rows(sim, dev)
+    torch.cuda.synchronize()
+    rec["quickstart"] = dict(wall_s=time.perf_counter() - t, points=6,
+                             table=torch_quickstart.table(got))
+    check_quickstart(got, fx["points"])
+    # fault: the rows held against another fabric's reference
+    shifted = fx["points"][2:] + fx["points"][:2]
+    rec["quickstart"]["fault_rejected"] = rejected(
+        "quickstart rows of another fabric",
+        lambda: check_quickstart(got, shifted))
+    for name, mod in (("serve_lm", torch_serve_lm),
+                      ("train_lm", torch_train_lm)):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        rec[name] = dict(wall_s=time.perf_counter() - t,
+                         tail=buf.getvalue().strip().splitlines()[-2:])
+        if name == "train_lm":
+            rec[name].update(steps=len(out["losses"]),
+                             first_loss=out["losses"][0],
+                             last_loss=out["losses"][-1],
+                             step_ms_median=1e3 * sorted(out["step_s"])[
+                                 len(out["step_s"]) // 2])
+    rec["kernel_launches"] = counts(kmods)
+    expect_counts("examples", rec["kernel_launches"], {})
+    rec["power"] = smi
+    say("examples", json.dumps(rec))
+    return rec
 
 
 class Fig9Apart:
@@ -3266,13 +3587,6 @@ def main(argv=None) -> int:
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
-    from repro_torch.core.constants import Fabric, SimParams
-    from repro_torch.core.sweep import SweepPoint, run_sweep_batched
-    from repro_torch.kernels import (_build, flash_attention, ops, ref,
-                                     rmsnorm, ssd_scan)
-    kmods = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-             "ssd_scan": ssd_scan}
-
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -3280,6 +3594,22 @@ def main(argv=None) -> int:
         f"device {name} count {torch.cuda.device_count()}")
     print(smi, flush=True)
 
+    started: list = []          # processes that run_phases starts
+    try:
+        return run_phases(dev, name, smi, started)
+    finally:
+        for proc in started:
+            proc.kill()
+
+
+def run_phases(dev, name: str, smi: str, started: list) -> int:
+    """Every phase but 1 (see the module docstring for the order); each
+    process it starts beside it goes into ``started``."""
+    import torch
+    from repro_torch.kernels import (_build, flash_attention, ops, ref,
+                                     rmsnorm, ssd_scan)
+    kmods = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+             "ssd_scan": ssd_scan}
     t = time.perf_counter()
     logs = _build.build()
     say("build", f"{time.perf_counter() - t:.1f} s for {sorted(logs)}")
@@ -3287,68 +3617,25 @@ def main(argv=None) -> int:
 
     kern = phase_rmsnorm(dev, rmsnorm, ops, ref)
 
-    sim_g = SimParams(cycles=1500, warmup=300, seed=0)
-    pts = [SweepPoint(4, 4, Fabric(c["fabric"]), load=c["load"],
-                      p_mem=c["p_mem"], app=c.get("app"), sim=sim_g)
-           for c in GOLDEN_CASES.values()]
-    t = time.perf_counter()
-    ms = run_sweep_batched(pts, device=dev)
-    dt_g = time.perf_counter() - t
-    for (gname, _), m in zip(GOLDEN_CASES.items(), ms):
-        gold = json.loads((ROOT / "tests" / "goldens" / f"{gname}.json")
-                          .read_text())
-        assert gold["sim"] == {"cycles": 1500, "warmup": 300, "seed": 0}
-        check_metrics(gname, m, gold["metrics"])
-    say("goldens", f"4 golden points match ({dt_g:.2f} s, one batch)")
-
-    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
-                     "fig2_reference.json").read_text())
-    sim_p = SimParams(**fx["sim"])
-    fabs = [Fabric.SUBSTRATE, Fabric.INTERPOSER, Fabric.WIRELESS]
-    pts = [SweepPoint(4, 4, f, load=1.0, p_mem=0.2, sim=sim_p) for f in fabs]
-    zero(kmods)
-    t = time.perf_counter()
-    ms = run_sweep_batched(pts, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    sim_launches = counts(kmods)
-    res = dict(zip(fabs, ms))
-    for f in fabs:
-        check_metrics(f"fig2 {f.name}", res[f], fx["points"][f.name]["metrics"])
-    w, i, s = res[Fabric.WIRELESS], res[Fabric.INTERPOSER], \
-        res[Fabric.SUBSTRATE]
-    bw_check = w.bw_gbps_core > i.bw_gbps_core > s.bw_gbps_core
-    en_check = w.avg_pkt_energy_pj < i.avg_pkt_energy_pj \
-        < s.avg_pkt_energy_pj
-    say("fig2", json.dumps(dict(
-        wall_s=wall, points=len(pts), points_per_s=len(pts) / wall,
-        lane_cycles_per_s=len(pts) * sim_p.cycles / wall,
-        batch_steps_per_s=sim_p.cycles / wall,
-        wireless_highest_bw=bw_check, wireless_lowest_energy=en_check,
-        kernel_launches_on_path=sim_launches,
-        bw_gbps_core={f.name: res[f].bw_gbps_core for f in fabs},
-        avg_pkt_energy_pj={f.name: res[f].avg_pkt_energy_pj for f in fabs},
-        power=smi)))
-    # the paper's grid runs no kernel of this repository: no kernel may
-    # have been expected on it, and none ran
-    if any(sim_launches.values()):
-        raise AssertionError(f"unexpected kernel launches: {sim_launches}")
-
     flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
     ssd_tc, ssd_tcx, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
     paths = models_8_to_11(dev, kmods, smi)
-    # fig9 (phase 15) runs in a second process beside the other simulator
-    # phases; the model phases run before and after it, alone on the card
+    # fig9 (phase 15) and phase 27 (a) and (c), the dry run's fake grid
+    # (it touches no memory of the card and runs no kernel; read in phase
+    # 27), run in processes of their own beside the other host-bound
+    # phases; the kernel and model phases run before and after, alone on
+    # the card
     fig9 = Fig9Apart()
-    try:
-        simulator_beside_fig9(dev, kmods, smi)
-        say("simulator", f"phases 12-14 and 20-21 wall "
-            f"{time.perf_counter() - fig9.t0:.1f} s, beside fig9")
-        fig9.join(timeout=1100)
-    finally:
-        fig9.kill()
+    started.append(fig9)
+    apart = DryrunApart()
+    started.append(apart)
+    simulator_beside_fig9(dev, kmods, smi)
+    say("simulator", f"phases 4-5, 12-14, 20-21 and 28 wall "
+        f"{time.perf_counter() - fig9.t0:.1f} s, beside fig9")
+    fig9.join(timeout=1100)
     paths.update(phase_hybrid(dev, kmods, smi))
     paths.update(phase_moe(dev, kmods, smi))
+    paths.update(phase_archs(dev, kmods, smi))
     # the encoder-decoder and the VLM, and the training path (no kernel
     # launches on it)
     paths.update(phase_encdec_vlm(dev, kmods, smi))
@@ -3356,15 +3643,11 @@ def main(argv=None) -> int:
     # the distributed training path on a process group of one rank
     phase_dp(dev, kmods, smi, train["full"]["step_ms_mean_after_2"])
     phase_pp(dev, kmods, smi)
-    # the dry run: its fake grid in a second process beside one real
-    # step's cell on a one-rank group
-    apart = DryrunApart()
-    try:
-        zero(kmods)
-        phase_dryrun(dev, smi, apart, train["full"])
-        expect_counts("dry run", counts(kmods), {})
-    finally:
-        apart.kill()
+    # the dry run: its fake grid's process, started beside fig9, and one
+    # real step's cell on a one-rank group
+    zero(kmods)
+    phase_dryrun(dev, smi, apart, train["full"])
+    expect_counts("dry run", counts(kmods), {})
 
     granite, mamba, hy = ("granite-8b forward", "mamba2-1.3b forward",
                           "hymba-1.5b forward")

@@ -8,8 +8,12 @@ a fake process group of 512 ranks (``--arch``, ``train_4k``, the 16 x 16
 pod; nothing is allocated on the device): the bridge between the paper's
 evaluation axes (energy / latency / bandwidth) and modern ML workloads.
 
+``--collectives`` also prints each cell's collective sequence grouped by
+op, group size and rank stride (calls, payload and wire bytes a device).
+
 Run:  PYTHONPATH=src python examples/torch_interconnect_study.py \
-          [--json rows.json] [--arch granite-8b] [--device cpu]
+          [--json rows.json] [--arch granite-8b] [--device cpu] \
+          [--collectives]
 """
 import argparse
 import json
@@ -43,6 +47,8 @@ def main(argv=None) -> None:
                     help="the cell to dry-run when no --json is given")
     ap.add_argument("--device", default=None,
                     help="the meshes' device type (default: the card)")
+    ap.add_argument("--collectives", action="store_true",
+                    help="print each cell's collectives by op and group")
     args = ap.parse_args(argv)
 
     if args.json:
@@ -65,6 +71,16 @@ def main(argv=None) -> None:
               f"{reps['wireless_inpackage'].energy_mj:12.1f} "
               f"{r['t_compute_ms']:11.2f} {r['t_memory_ms']:9.2f} "
               f"{r['t_collective_ms']:9.2f} {r['bottleneck']:>11s}")
+
+    if args.collectives:
+        for r in rows:
+            print(f"\n{r['arch']} collectives: op, group size, stride: "
+                  "calls, payload GB, wire GB a device")
+            for key, (n, payload, wire) in sorted(
+                    r.get("calls_by_group", {}).items(),
+                    key=lambda kv: -kv[1][2]):
+                print(f"  {key:40s} {n:6d} {payload / 1e9:10.3f} "
+                      f"{wire / 1e9:10.3f}")
 
     print("\nSchedule the WiMCS cost model picks for a 1 GB gradient "
           "all-reduce:")

@@ -23,7 +23,14 @@ and no collective moves data; on real tensors the counts are the same.
     wire bytes per device by the reference's rule (``_match_collective``)
     with ``g`` its group's size: all-reduce 2 * in * (g-1)/g, all-gather
     max(out, in) * (g-1)/g, reduce-scatter and all-to-all in * (g-1)/g,
-    otherwise in;
+    otherwise in.  A ``collective-permute`` (``lax.ppermute``) has no
+    functional op of its own: it is an ``all_to_all_single`` whose split
+    sizes send to at most one peer and receive from at most one
+    (``torch.distributed._functional_collectives.permute_tensor``'s form,
+    and ``train/pipeline.py``'s hand-off), and counts as its buffer, the
+    larger of the bytes it sends and receives (a rank at an end of the
+    pipe sends or receives nothing, where XLA's SPMD program gives every
+    device the same operand), as the reference counts its operand;
   * ``peak_live_bytes``: the peak of the bytes of live storages the step
     made (the arguments' own storages excluded), freed as their last
     reference dies; ``peak_mem_per_dev`` adds the arguments' bytes;
@@ -31,8 +38,15 @@ and no collective moves data; on real tensors the counts are the same.
     view reads (an argument no op reads is dropped from a compiled
     program, as ``jit`` prunes unused arguments).
 
-It builds no ``CollectiveCall`` sequence (fig7's trace still comes from
-the reference's HLO text).
+``calls`` is the step's collective sequence (the counterpart of
+``hlo_traffic.collective_sequence``): one ``CollectiveCall`` per counted
+collective, in dispatch order, by the reference's rules: the payload is
+the gathered output of an all-gather and the operand bytes of any other
+op, ``group_size`` the group's size, ``stride`` the gap between the
+group's first two global ranks (1 for contiguous ranks), ``repeat`` 1 (an
+eager step runs every iteration that XLA keeps in a ``while``; no run of
+calls is folded).  ``step_collectives`` runs a step and returns it, and
+``workloads/graph.py`` lowers it to a trace.
 """
 from __future__ import annotations
 
@@ -42,6 +56,8 @@ import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.interconnect.hlo_traffic import CollectiveCall
 
 aten = torch.ops.aten
 
@@ -71,6 +87,8 @@ _META_PROPAGATION = "_propagate_tensor_meta_non_cached"
 
 _COLLECTIVES = {
     "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter",
@@ -104,27 +122,42 @@ def dot_flops(func, args, out) -> float:
     return 2.0 * out.numel() * k
 
 
-def _group_size(name) -> int:
+def _group_ranks(name) -> list:
+    """The global ranks of the group called ``name``."""
+    import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
-    return _resolve_process_group(name).size()
+    return dist.get_process_group_ranks(_resolve_process_group(name))
 
 
-def collective_bytes(func, args, out):
-    """(kind, wire bytes per device) of a functional collective, else
-    None; the reference's ``_match_collective`` rule."""
+def _is_permute(args) -> bool:
+    """Whether an ``all_to_all_single``'s split sizes send to at most one
+    peer and receive from at most one."""
+    out_splits, in_splits = args[1], args[2]
+    return (sum(1 for n in in_splits if n) <= 1
+            and sum(1 for n in out_splits if n) <= 1)
+
+
+def collective_call(func, args, out):
+    """``(CollectiveCall, wire bytes per device)`` of a functional
+    collective, else None; the reference's ``_match_collective`` and
+    ``collective_sequence`` rules (module docstring)."""
     if func.namespace != "_c10d_functional":
         return None
     name = func._opname
     kind = _COLLECTIVES.get(name)
     if kind is None:
         return None
-    group = args[-1]
-    g = _group_size(group)
+    ranks = _group_ranks(args[-1])
+    g = len(ranks)
     if g <= 1:
         return None
+    if kind == "all-to-all" and _is_permute(args):
+        kind = "collective-permute"
     in_b = sum(nbytes(t) for t in _tensors(args[0]))
     out_b = sum(nbytes(t) for t in _tensors(out))
     frac = (g - 1) / g
+    if kind == "collective-permute":
+        in_b = max(in_b, out_b)
     if kind == "all-reduce":
         b = 2 * in_b * frac
     elif kind == "all-gather":
@@ -133,7 +166,9 @@ def collective_bytes(func, args, out):
         b = in_b * frac
     else:
         b = in_b
-    return kind, b
+    stride = ranks[1] - ranks[0] if ranks[1] > ranks[0] else 1
+    payload = out_b if kind == "all-gather" else in_b
+    return CollectiveCall(kind, float(payload), g, 1, stride=stride), b
 
 
 @dataclasses.dataclass
@@ -167,6 +202,8 @@ class StepAnalysis(TorchDispatchMode):
         self.coll = 0.0
         self.coll_by_op: dict = {}
         self.n_coll = 0
+        self.calls: list = []               # CollectiveCall, in order
+        self.wires: list = []               # each call's wire bytes
         self.live = 0
         self.peak = 0
         self._meta = 0
@@ -228,12 +265,14 @@ class StepAnalysis(TorchDispatchMode):
             return func(*args, **(kwargs or {}))
         out = func(*args, **(kwargs or {}))
         self.flops += dot_flops(func, args, out)
-        coll = collective_bytes(func, args, out)
+        coll = collective_call(func, args, out)
         if coll is not None:
-            kind, b = coll
+            call, b = coll
             self.coll += b
-            self.coll_by_op[kind] = self.coll_by_op.get(kind, 0.0) + b
+            self.coll_by_op[call.op] = self.coll_by_op.get(call.op, 0.0) + b
             self.n_coll += 1
+            self.calls.append(call)
+            self.wires.append(b)
         outs = list(_tensors(out))
         mutates = func._schema.is_mutable
         view = any(a.alias_info is not None and not a.alias_info.is_write
@@ -263,6 +302,16 @@ def analyze(fn, *args, arg_tensors=()):
     with mode:
         out = fn(*args)
     return out, mode.stats()
+
+
+def step_collectives(fn, *args) -> list:
+    """The collective sequence of ``fn(*args)`` run once under a
+    ``StepAnalysis``: a list of ``CollectiveCall`` in dispatch order (the
+    counterpart of ``hlo_traffic.collective_sequence``)."""
+    mode = StepAnalysis()
+    with mode:
+        fn(*args)
+    return list(mode.calls)
 
 
 def flat_tensors(tree) -> list:

@@ -208,6 +208,13 @@ def run_cell(cfg, shape, mesh, mesh_name: str, device=None, **kw) -> dict:
             with mode:
                 step(*placed)
         st = mode.stats()
+        calls_by_group: dict = {}
+        for c, wire in zip(mode.calls, mode.wires):
+            rec = calls_by_group.setdefault(
+                f"{c.op} g={c.group_size} stride={c.stride}", [0, 0.0, 0.0])
+            rec[0] += 1
+            rec[1] += c.payload_bytes
+            rec[2] += wire
         n = math.prod(M.axis_sizes(mesh).values())
         peak_mem = st.peak_mem_per_dev
         rl = Roofline(
@@ -240,6 +247,9 @@ def run_cell(cfg, shape, mesh, mesh_name: str, device=None, **kw) -> dict:
             "read_arg_bytes_per_dev": st.read_arg_bytes,
             "peak_mem_per_dev": peak_mem,
             "n_collectives": st.n_collectives,
+            # the collective sequence by op, group size and rank stride:
+            # [calls, payload bytes, wire bytes]
+            "calls_by_group": calls_by_group,
         }
     except Exception as e:  # a failing cell is a bug; record it loudly
         return {"arch": cfg.name, "shape": shape.name, "mesh": mesh_name,

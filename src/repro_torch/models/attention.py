@@ -79,12 +79,9 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
 
     def body(m, l, acc, kblk, vblk, i: int):
-        n = kblk.shape[1]                      # the last block may be short
         kpos = i * block + torch.arange(block, device=q.device)
         kr = _repeat_kv(kblk, g).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kr)
-        if n < block:                          # the reference pads with 0
-            s = torch.nn.functional.pad(s, (0, block - n))
         mask = kpos[None, :] <= qpos[:, None] if causal else \
             torch.ones((Sq, block), dtype=torch.bool, device=q.device)
         if window:
@@ -94,10 +91,13 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None]
         vr = _repeat_kv(vblk, g).float()
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p[..., :n], vr)
-        return m_new, l * alpha + p.sum(-1), acc
+        # the product with v last: it saves the last tensors a checkpoint's
+        # recompute needs, so the recompute stops before it runs (as the
+        # reference's ``jax.checkpoint`` recomputes only p for the VJP)
+        return m_new, l, acc + torch.einsum("bhqk,bkhd->bhqd", p, vr)
 
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -107,6 +107,10 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
         step = body
         body = lambda *a: _ckpt.checkpoint(step, *a,        # noqa: E731
                                            use_reentrant=False)
+    pad = n_blocks * block - Sk
+    if pad:                                    # the reference pads with 0
+        k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                for t in (k, v))
     for i in range(n_blocks):
         m, l, acc = body(m, l, acc, k[:, i * block:(i + 1) * block],
                          v[:, i * block:(i + 1) * block], i)
@@ -136,8 +140,9 @@ def inner_on_shards(q, k, v, *, causal, window=0, impl="blockwise"):
     head) block, as GSPMD partitions it."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     H = q.shape[2]
+    # a pending sum (the projection of a width-split x) reduced first
     q = sh.with_placements(q, lambda i, p: Replicate() if p.is_shard(3)
-                           else p)
+                           or p.is_partial() else p)
     pl = q.placements
     kv = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
     # each rank's k and v gradients cover its own rows and heads of q only

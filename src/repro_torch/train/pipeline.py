@@ -17,7 +17,13 @@ what JAX's transpose does there:
 - the hand-off (``lax.ppermute`` to the next stage): forward, send to the
   next stage and receive from the previous one (stage 0 gets zeros);
   backward, the reverse permute — the gradient goes back to the previous
-  stage;
+  stage.  It is one functional ``all_to_all_single`` over the pipeline
+  group that sends the whole buffer to one peer (``_shift``; gloo runs
+  its uneven splits too), which ``interconnect/graph_traffic.py`` counts
+  as a ``collective-permute``; one autograd node per tick returns both
+  the handed buffer and the tick's output (``_Tick``), so that, as in the
+  reference's transposed scan, every tick's backward permutes back (the
+  last tick's cotangent is zeros) — 2 (M + S - 1) hand-offs a step;
 - the replicated result (``psum`` of the masked output, under a
   replicated ``out_specs``): forward, a sum over the axis; backward, the
   gradient unchanged (JAX divides the replicated cotangent by the axis
@@ -32,7 +38,24 @@ what JAX's transpose does there:
 
 Every rank runs the same ticks and the same collectives in the same order
 (a stage's idle ticks compute on zeros, as the reference's do), so the
-point-to-point hand-offs match up in both directions.
+hand-offs match up in both directions.  Plain tensors (gloo ranks, every
+rank passing the whole parameters and batch) and DTensors run the same
+ramp (``ramp``).
+
+On DTensors (the dry run's placed parameters and batch) the pipeline is
+the reference's ``shard_map``: manual on the pipeline axis, automatic on
+the others.  Each boundary takes the rank's block on the pipeline axis
+(``to_local`` of that mesh dim only) and places it again as a DTensor on
+the sub-mesh of the other dims (``_off_axis``), the gradient coming back
+placed as the input is: the stage's slice of the layers is the rank's
+block of the stacked dim (the reference's ``P(axis)``, its size-1 stage
+dim squeezed), and the replicated microbatches' cotangents are summed
+over the axis (``_ReplicatedIn``).  So FSDP and the data split behave
+inside a stage as GSPMD's automatic axes do.  The microbatches are
+``train/loop.py::microbatch``'s rows, and a stage runs them split on
+their width (``_boundary``), as the reference's compiled stage does.  The
+hand-off and the masked sum run on the stage's local blocks, as
+functional collectives.
 
 Trade vs tensor parallelism on the same axis: per-layer all-reduces
 (2 * B*S*d bytes each) become one B*S*d hand-off per *stage boundary* —
@@ -42,12 +65,15 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import chunked_xent, norm
+from repro_torch.models.layers import chunked_xent, norm, reduced
+from repro_torch.sharding import specs as sh
+from repro_torch.train.loop import microbatch
 
 DECODER_ONLY = ("dense", "moe", "ssm", "hybrid")
 
@@ -64,32 +90,11 @@ def _regroup(layers, n_stages: int):
             for k, v in layers.items()}
 
 
-def _exchange(x: torch.Tensor, send_to, recv_from) -> torch.Tensor:
-    """Send ``x`` to global rank ``send_to`` and receive a tensor like it
-    from ``recv_from`` (zeros where there is none)."""
-    out = torch.zeros_like(x)
-    ops = []
-    if send_to is not None:
-        ops.append(dist.P2POp(dist.isend, x, send_to))
-    if recv_from is not None:
-        ops.append(dist.P2POp(dist.irecv, out, recv_from))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
-
-
-class _HandOff(torch.autograd.Function):
-    """``lax.ppermute`` to the next stage, with its transpose."""
-
-    @staticmethod
-    def forward(ctx, y, prev, nxt):
-        ctx.prev, ctx.nxt = prev, nxt
-        return _exchange(y.contiguous(), nxt, prev)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _exchange(g.contiguous(), ctx.prev, ctx.nxt), None, None
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``, a functional all-reduce (which the step
+    analysis counts)."""
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum",
+                                                group))
 
 
 class _ReplicatedSum(torch.autograd.Function):
@@ -97,9 +102,7 @@ class _ReplicatedSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _all_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -116,9 +119,7 @@ class _ReplicatedIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _all_reduce(g, ctx.group), None
 
 
 class _StageSlice(torch.autograd.Function):
@@ -136,6 +137,69 @@ class _StageSlice(torch.autograd.Function):
         parts = [torch.empty_like(g) for _ in ctx.order]
         dist.all_gather(parts, g, group=ctx.group)
         return torch.stack([parts[i] for i in ctx.order]), None, None, None
+
+
+def _shift(x: torch.Tensor, group, stage: int, n: int, step: int
+           ) -> torch.Tensor:
+    """Send ``x`` to stage ``stage + step`` and receive a tensor like it
+    from ``stage - step`` (zeros where there is none), as one functional
+    ``all_to_all_single`` over the pipeline group."""
+    rows = x.shape[0]
+    send, recv = [0] * n, [0] * n
+    if 0 <= stage + step < n:
+        send[stage + step] = rows
+    else:                               # the end of the pipe sends nothing
+        x = x[:0]
+    if 0 <= stage - step < n:
+        recv[stage - step] = rows
+    out = funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), recv, send, group))
+    return out if any(recv) else torch.zeros((rows, *x.shape[1:]),
+                                             dtype=x.dtype, device=x.device)
+
+
+class _Tick(torch.autograd.Function):
+    """A tick's output and its ``lax.ppermute`` to the next stage, as one
+    node: its backward runs whenever either is used, and permutes the
+    handed buffer's cotangent back (zeros after the last tick), as the
+    reference's transposed scan does at every tick."""
+
+    @staticmethod
+    def forward(ctx, y, group, stage, n):
+        ctx.group, ctx.stage, ctx.n = group, stage, n
+        return _shift(y, group, stage, n, 1), y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g_handed, g_y):
+        back = _shift(g_handed, ctx.group, ctx.stage, ctx.n, -1)
+        return back + g_y, None, None, None
+
+
+def _off_axis(t, ax: int, sub, group=None):
+    """A DTensor on the whole mesh as a DTensor on ``sub``, the mesh
+    without dim ``ax``: the rank's block on ``ax``, the other placements
+    kept, the gradient coming back placed as ``t`` is.  ``group``: ``t``
+    is replicated over ``ax`` and every stage receives it alike, so its
+    cotangents are summed over the axis (``_ReplicatedIn``)."""
+    pl = list(t.placements)
+    shape = list(t.shape)
+    if pl[ax].is_shard():
+        shape[pl[ax].dim] //= t.device_mesh.size(ax)
+    local = t.to_local(grad_placements=pl)
+    if group is not None:
+        local = _ReplicatedIn.apply(local, group)
+    return sh.as_placed(local, sub, pl[:ax] + pl[ax + 1:], shape)
+
+
+def _boundary(t):
+    """A stage's boundary buffer [Bm, Sq, d] as the reference's compiled
+    pipeline lays it out: split on the width over every mesh dim of the
+    stage (its hand-off is f32[Bm, Sq, d / 16] a device on the 16 x 16
+    pod), which GSPMD takes from the FSDP-split weights.  The layers then
+    contract over the split width and run the sequence mixers on whole
+    microbatches, as the reference's stage does."""
+    from torch.distributed.tensor import Shard
+    return sh.with_placements(t, lambda i, p: Shard(2))
 
 
 def _pipe_ranks(mesh, axis: str) -> list:
@@ -179,8 +243,6 @@ def make_pp_loss(cfg: ModelConfig, mesh, *, n_stages: int, n_micro: int,
     group = mesh.get_group(axis)
     ranks = _pipe_ranks(mesh, axis)
     stage = mesh.get_local_rank(axis)
-    prev = ranks[stage - 1] if stage > 0 else None
-    nxt = ranks[stage + 1] if stage < S - 1 else None
     # all_gather's outputs come in the group's rank order
     order = [dist.get_group_rank(group, r) for r in ranks]
 
@@ -196,6 +258,57 @@ def make_pp_loss(cfg: ModelConfig, mesh, *, n_stages: int, n_micro: int,
             x = body(x, lp, positions)
         return x
 
+    def ramp(inject, layers, positions, enter=lambda t: t,
+             leave=lambda t: t):
+        """The GPipe ramp: ``inject(m)`` is microbatch ``m``'s boundary
+        buffer (f32), ``enter`` / ``leave`` take a buffer into and out of
+        the stage's layout; returns the last stage's outputs [M, ...],
+        summed over the axis."""
+        # a factory, not ``torch.tensor``: under ``FakeTensorMode`` a
+        # constant tensor is made for real on the device first
+        first = torch.full((), stage == 0, device=dev)
+        buf = None
+        ys = []
+        for t in range(M + S - 1):
+            inj = inject(min(t, M - 1))
+            if buf is None:
+                buf = torch.zeros_like(inj)
+            x_in = enter(torch.where(first, inj, buf))
+            y = stage_body(x_in.to(torch.bfloat16), layers, positions)
+            buf, y = _Tick.apply(leave(y.float()), group, stage, S)
+            ys.append(y)
+        # microbatch m finishes on the last stage at tick m + S - 1
+        out = torch.stack(ys[S - 1:S - 1 + M])
+        mask = 1.0 if stage == S - 1 else 0.0
+        return _ReplicatedSum.apply(out * mask, group)
+
+    def pipeline(x, layers_tree, positions):
+        """The ramp on DTensors: ``x`` [B, Sq, d] f32 on the whole mesh;
+        returns the last stage's outputs, summed over the axis."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = mesh.mesh_dim_names
+        ax = names.index(axis)
+        rest = tuple(n for n in names if n != axis)
+        sub = mesh[rest if len(rest) > 1 else rest[0]]
+        B, Sq, d = x.shape
+        xs = _off_axis(reduced(x), ax, sub, group)
+        x_mb = [microbatch(xs, M, m) for m in range(M)]
+        staged = tf.unflatten((k, _off_axis(a, ax, sub))
+                              for k, a in tf.leaves(layers_tree))
+        layers = tf.unstack(staged, cfg.n_layers // S)
+        out = ramp(lambda m: _boundary(x_mb[m]).to_local(), layers,
+                   positions,
+                   enter=lambda t: sh.as_placed(t, sub, [Shard(2)] * sub.ndim,
+                                                (B // M, Sq, d)),
+                   leave=lambda t: _boundary(t).to_local())
+        pl = [Replicate() if i == ax else Shard(3) for i in range(len(names))]
+        out = sh.as_placed(out, mesh, pl, (M, B // M, Sq, d))
+        # the microbatches back in row order, split as the batch is
+        whole = sh.with_placements(out, lambda i, p: Replicate())
+        return sh.with_placements(whole.reshape(B, Sq, d), lambda i, p:
+                                  x.placements[i] if x.placements[i]
+                                  .is_shard(0) else p)
+
     def loss_fn(params, batch):
         emb = params["embed"]
         tokens = batch["tokens"]
@@ -204,28 +317,22 @@ def make_pp_loss(cfg: ModelConfig, mesh, *, n_stages: int, n_micro: int,
             raise ValueError(f"batch of {B} does not split into {M} "
                              "microbatches")
         x = tf.embed(emb, tokens).float()
-        positions = torch.arange(Sq, device=x.device)
+        positions = torch.arange(Sq, device=dev)
+        if sh.is_dtensor(x):
+            h = pipeline(x, params["layers"], positions).to(torch.bfloat16)
+            return epilogue(h, params, batch)
         x_mb = _ReplicatedIn.apply(x.reshape(M, B // M, Sq, -1), group)
         staged = _regroup(params["layers"], S)
         names, leaves = zip(*tf.leaves(staged))
         mine = tf.unflatten(zip(names, (
             _StageSlice.apply(a, stage, group, order) for a in leaves)))
         layers = tf.unstack(mine, cfg.n_layers // S)
-        first = torch.tensor(stage == 0, device=x.device)
-        buf = torch.zeros_like(x_mb[0])               # f32 boundary
-        ys = []
-        for t in range(M + S - 1):
-            inj = x_mb[min(t, M - 1)]
-            x_in = torch.where(first, inj, buf)
-            y = stage_body(x_in.to(torch.bfloat16), layers,
-                           positions).float()
-            buf = _HandOff.apply(y, prev, nxt)
-            ys.append(y)
-        # microbatch m finishes on the last stage at tick m + S - 1
-        out = torch.stack(ys[S - 1:S - 1 + M])
-        mask = 1.0 if stage == S - 1 else 0.0
-        out = _ReplicatedSum.apply(out * mask, group)  # [M, Bm, S, d] f32
-        h = out.reshape(B, Sq, -1).to(torch.bfloat16)
+        out = ramp(lambda m: x_mb[m], layers, positions)  # [M, Bm, S, d]
+        return epilogue(out.reshape(B, Sq, -1).to(torch.bfloat16), params,
+                        batch)
+
+    def epilogue(h, params, batch):
+        emb = params["embed"]
         h = norm(h, params["ln_f"], cfg.norm)
         unemb = params.get("unembed", emb)
         return chunked_xent(lambda hc, e: tf._logits(cfg, hc, e), h, unemb,

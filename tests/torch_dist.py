@@ -26,6 +26,8 @@ import torch
 
 FIXTURE = pathlib.Path(__file__).parent / "torch_fixtures" / \
     "dist_reference.npz"
+PP_DTENSOR_FIXTURE = pathlib.Path(__file__).parent / "torch_fixtures" / \
+    "pp_dtensor_reference.npz"
 TIMEOUT_S = 120          # a rank waiting longer on a collective fails
 
 
@@ -292,8 +294,8 @@ def pipeline(rank: int, fault: str = "") -> dict:
     from repro_torch.train.loop import value_and_grad
     z, meta = fixture()
     if fault == "handoff_backward":
-        pp._HandOff.backward = staticmethod(
-            lambda ctx, g: (torch.zeros_like(g), None, None))
+        pp._Tick.backward = staticmethod(
+            lambda ctx, g_handed, g_y: (g_y, None, None, None))
     shapes = {"granite": (2, 2), "hybrid": (1, 4)}
     out = {}
     for name, c in meta["pp"].items():
@@ -319,6 +321,111 @@ def pipeline(rank: int, fault: str = "") -> dict:
                                 zip(tf.leaves(params), sg)}
         out[name] = rec
     return out
+
+
+def pipeline_dtensor(rank: int, fault: str = "") -> dict:
+    """The pipeline on DTensors, as the dry run places it, with real
+    values on a (2, 2) ("data", "model") mesh: for granite-8b's and
+    hymba-1.5b's smoke configs (2 layers: 2 stages of 1, 2 microbatches,
+    weights ``carry.numpy_params(cfg, 0)``, the 4 x 32 batch of
+    ``pp_dtensor_reference.npz``), the parameters and batch placed by
+    ``dryrun.build_step``'s ``--pp`` specs, ``make_pp_loss``'s loss and
+    every gradient gathered, the plain one-device ``Model.loss``'s beside
+    them, and the step's collective sequence
+    (``graph_traffic.step_collectives``) as (op, payload, group size,
+    stride).  ``hybrid_layer_f32``: hymba-1.5b's smoke layer in f32 on a
+    [2, 32, d] x split on its width over "data" (a stage's layout), its
+    loss and gradients beside the plain layer's.
+    ``fault="handoff_backward"``: the hand-off's backward sends nothing
+    back (zeros)."""
+    from repro_torch import carry
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.interconnect import graph_traffic as gt
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train import pipeline as pp
+    from repro_torch.train.loop import value_and_grad
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if fault == "handoff_backward":
+        pp._Tick.backward = staticmethod(
+            lambda ctx, g_handed, g_y: (g_y, None, None, None))
+    mesh = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+    z = np.load(PP_DTENSOR_FIXTURE)
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    out = {"hybrid_layer_f32": _width_split_layer(mesh["data"])}
+    for arch in ("granite-8b", "hymba-1.5b"):
+        cfg = get_config(arch).smoke()
+        shape = ShapeSpec("t", 32, 4, "train")
+        _, args, specs = D.build_step(cfg, shape, mesh, device="cpu", pp=2,
+                                      remat="none")
+        params = carry.params_from_jax(carry.numpy_params(cfg, 0),
+                                       device="cpu")
+        batch = {k: torch.from_numpy(z[f"{arch}/{k}"])
+                 for k in ("tokens", "labels")}
+        dparams = sh.distribute(params, specs[0], mesh)
+        dbatch = sh.distribute(batch, specs[2], mesh)
+        loss_fn = pp.make_pp_loss(cfg, mesh, n_stages=2, n_micro=2,
+                                  remat="none", xent_chunk=16, device="cpu")
+        with implicit_replication():
+            sl, sg = value_and_grad(Model(cfg, xent_chunk=16).loss, params,
+                                    batch)
+            calls = gt.step_collectives(value_and_grad, loss_fn, dparams,
+                                        dbatch)
+            loss, grads = value_and_grad(loss_fn, dparams, dbatch)
+            out[arch] = {
+                "loss": (float(sl), float(full(loss))),
+                "grads": {k: (a.float(), full(b).float()) for (k, _), a, b
+                          in zip(tf.leaves(params), sg, grads)},
+                "calls": [(c.op, c.payload_bytes, c.group_size, c.stride)
+                          for c in calls]}
+    return out
+
+
+def _width_split_layer(sub) -> dict:
+    """One hybrid layer (hymba-1.5b smoke, f32 weights) on an x split on
+    its width over the 1-D mesh ``sub`` (the layout of a pipeline stage),
+    the weights split on their first dim where it divides: the summed
+    squares of its output and their gradients, beside the plain
+    layer's."""
+    from repro_torch import carry
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import specs as sh
+    from repro_torch.train.loop import value_and_grad
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = get_config("hymba-1.5b").smoke()
+    lp = sh.tree_map(lambda t: t.float(), tf.layer_params(
+        carry.params_from_jax(carry.numpy_params(cfg, 0),
+                              device="cpu")["layers"], 0))
+    x = torch.randn(2, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(32)
+
+    def f(p, b):
+        y = tf._layer_body(cfg, b["x"], p, positions=pos, causal=True,
+                           impl="blockwise")
+        return (y.float() ** 2).sum()
+
+    dlp = sh.tree_map(lambda t: distribute_tensor(
+        t, sub, [Shard(0)] if t.ndim > 1 and t.shape[0] % sub.size() == 0
+        else [Replicate()]), lp)
+    dx = distribute_tensor(x, sub, [Shard(2)])
+    l0, g0 = value_and_grad(f, lp, {"x": x})
+    with implicit_replication():
+        l1, g1 = value_and_grad(f, dlp, {"x": dx})
+    full = (lambda t: t.full_tensor() if isinstance(t, DTensor) else t)
+    return {"loss": (float(l0), float(full(l1))),
+            "grads": {k: (a, full(b)) for (k, _), a, b in
+                      zip(tf.leaves(lp), g0, g1)}}
 
 
 def production_specs(path: str) -> None:
@@ -673,6 +780,48 @@ def dryrun(path: str, part: str) -> None:
     finally:
         M.shutdown()
     pathlib.Path(path).write_text(json.dumps(out))
+
+
+# the cells of ``dryrun_flags_reference.json`` (name: arch, shape, flags
+# changed from ``DRYRUN_DEFAULTS``; all on the 16 x 16 pod), split into
+# parts that run in processes side by side
+DRYRUN_FLAGS = {
+    "pp": ("hymba-1.5b", "train_4k", {"pp": 4}),
+    "fsdp_off": ("whisper-tiny", "train_4k", {"fsdp": False}),
+    "remat_full": ("whisper-tiny", "train_4k", {"remat": "full"}),
+    "microbatches": ("whisper-tiny", "train_4k", {"microbatches": 2}),
+    "seq_shard_decode_off": ("hymba-1.5b", "decode_32k",
+                             {"seq_shard_decode": False}),
+    "ssm_chunk": ("mamba2-1.3b", "prefill_32k", {"ssm_chunk": 128}),
+    "act_sp": ("whisper-tiny", "train_4k", {"act_sp": True}),
+    "fsdp_gather_in_scan": ("whisper-tiny", "train_4k",
+                            {"fsdp_gather_in_scan": True}),
+}
+DRYRUN_FLAGS_PARTS = (("pp",), ("ssm_chunk", "seq_shard_decode_off"),
+                      ("fsdp_off", "remat_full", "microbatches"),
+                      ("act_sp", "fsdp_gather_in_scan"))
+
+
+def dryrun_flags(path: str, part: str) -> None:
+    """The cells of ``DRYRUN_FLAGS_PARTS[part]`` run whole by the port's
+    dry run on the CPU under a fake process group of 512 ranks, as JSON
+    rows keyed by name."""
+    from repro_torch.configs.base import SHAPES, all_configs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    torch.set_num_threads(1)
+    M.init_fake(512)
+    try:
+        (mname, mesh), = D.make_meshes("pod1", "cpu")
+        rows = {}
+        for name in DRYRUN_FLAGS_PARTS[int(part)]:
+            arch, sname, flags = DRYRUN_FLAGS[name]
+            rows[name] = D.run_cell(all_configs()[arch], SHAPES[sname], mesh,
+                                    mname, device="cpu",
+                                    **dict(DRYRUN_DEFAULTS, **flags))
+    finally:
+        M.shutdown()
+    pathlib.Path(path).write_text(json.dumps(rows))
 
 
 SC_VARIANTS = {"default": {}, "no_fsdp": {"fsdp": False},
