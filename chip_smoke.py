@@ -277,20 +277,38 @@ order in which they run is given after the list):
 31. dbrx-132b at full width and ``DBRX_LAYERS`` of its 40 layers (16
     experts, top 4), held layer by layer as phase 19;
 32. llama3-405b at full width and ``LLAMA3_LAYERS`` of its 126 layers
-    (d 16 384, 128 query heads over 8), as phase 29.
+    (d 16 384, 128 query heads over 8), as phase 29;
+33. the simulator's execution chunk and the sweep's drivers against
+    ``tests/torch_fixtures/chunk_reference.json`` (written by the JAX
+    package, ``make_chunk_reference.py``), every ``SimState`` leaf
+    (integers exact, floats rel 1e-6) or every ``Metrics`` field, in four
+    processes (``python3 chip_smoke.py --phase chunk PART``, the parts of
+    ``CHUNK_PARTS``): the 4C4M wireless point of
+    ``tests/test_chunked_exec.py`` (load 0.5, 700 cycles with 100 of
+    warm-up) through ``simulator.run(chunk=)`` at chunks 32 and 96 in
+    one, 128 and 256 in another, each run's wall printed on a line of
+    its own; a fig9 drift point (19 dB, 4 dB drift, re-selection) whose
+    births are cut to 16 cycles, at chunk 96 (it drains at 480, off the
+    128-cycle window, so the boundaries from 512 on fire in the driver's
+    replay) and 128; and the three fabrics of a 4C4M point at a
+    512-cycle budget through ``run_sweep_batched(driver="monolithic")``
+    and ``driver="chunked"`` (its wireless lane drains at 384 and stays
+    frozen while the wireline lanes run on), with ``sweep.POINTS_RUN``'s
+    move; no kernel launch.
 
 Phase 15 (fig9) runs in a second process on the same card (``python3
-chip_smoke.py --phase fig9``, ``Fig9Apart``): one host thread's dispatch
+chip_smoke.py --phase fig9``, ``Apart``): one host thread's dispatch
 bounds it for 6-10 minutes while the card idles.  This process runs
-phases 1-3 and 6-11 alone, then starts fig9's process and a third one
-for 27 (a) and (c) (``DryrunApart``: it allocates nothing on the card
-and runs no kernel), runs 4-5, 12-14, 20-21 and 28 (the other
-host-bound phases) beside them, prints fig9's output when its process
-ends (failing if it failed), then runs 16-19, 29-32 and 22-27.  So the
-walls of phases 4-5, 12-15, 20-21 and 28 (the examples, train_lm's step
-times among them) and of 27 (a) and (c) are taken beside another
-process; the kernel timings (phases 3, 6 and 7) and the model phases
-8-11, 16-19, 22-26 and 29-32 are taken with the card to themselves.
+phases 1-3 and 6-11 alone, then starts fig9's process, a third one for
+27 (a) and (c) (``DryrunApart``: it allocates nothing on the card and
+runs no kernel) and phase 33's four, runs 4-5, 12-14, 20-21 and 28 (the
+other host-bound phases) beside them, prints phase 33's output and then
+fig9's when their processes end (failing if one failed), then runs
+16-19, 29-32 and 22-27.  So the walls of phases 4-5, 12-15, 20-21, 28
+(the examples, train_lm's step times among them) and 33 and of 27 (a)
+and (c) are taken beside another process; the kernel timings (phases 3,
+6 and 7) and the model phases 8-11, 16-19, 22-26 and 29-32 are taken
+with the card to themselves.
 
 Phases 12-14 each plant two faults that their checks must reject: as
 extra lanes of the same call, tables packed with the bank service one
@@ -306,6 +324,14 @@ Each prints wall seconds, points/s, lane-cycles/s and the slowest lane's
 ``drain_cycle`` with the card's name and power limit, and reads every
 kernel's launch count after its run (no kernel of this repository runs
 on the simulator).
+Phase 33 plants four: the drain check passing at the first chunk
+boundary past warm-up while the lane still carries traffic (a rerun of
+the 700-cycle point in each of its two processes), the chunk ignored
+(the loop run in chunks of 128: the chunk-128 run of the drift point
+held against the chunk-96 record), the window replay skipped (the state
+the driver hands ``replay_windows`` in the chunk-96 run, closed as the
+driver closes it) and the sweep's ``driver`` ignored (the chunked result
+held against the monolithic record).
 
 Phases 8, 9 and 29-32 also plant two faults in the flash entry point
 (output zeroed; keys 128 and more back dropped), phases 10 and 11 two in
@@ -3533,32 +3559,248 @@ def phase_examples(dev, kmods, smi) -> dict:
     return rec
 
 
-class Fig9Apart:
-    """Phase 15, fig9, run in a second process on the same card
-    (``python3 chip_smoke.py --phase fig9``), beside the phases that
-    follow: fig9 is bound by one host thread's dispatch for ~6-10 minutes
-    while the card idles, so it overlaps the others.  Its output goes to a
-    temporary file, printed by ``join``, which raises if the process
-    failed; ``kill`` stops it if this run ends first."""
+# phase 33's parts, one process each: the four 700-cycle runs alone take
+# ~20-30 s of host dispatch, so they split in two, and the drift point
+# and the sweep go apart from them
+CHUNK_PARTS = ("open:32,96", "open:128,256", "living", "sweep")
 
-    def __init__(self):
+
+def chunk_packed(c: dict, dev):
+    """A case of ``chunk_reference.json`` packed by the port, as
+    ``make_chunk_reference.packed`` packs it with the JAX package."""
+    from repro_torch.core import simulator, traffic
+    from repro_torch.core.constants import DEFAULT_PHY, Fabric, SimParams
+    from repro_torch.core.routing import compute_routing
+    from repro_torch.core.topology import build_xcym
+    from repro_torch.phy import PhySweepSpec
+    topo = build_xcym(c["n_chips"], c["n_mem"], Fabric(c["fabric"]))
+    tt = traffic.uniform_random(topo, c["load"], c["p_mem"],
+                                c.get("birth_cycles", c["cycles"]),
+                                DEFAULT_PHY.pkt_flits, seed=c["traffic_seed"])
+    spec = PhySweepSpec(link_budget_db=c["budget_db"],
+                        drift_amp_db=c["drift_amp_db"],
+                        reselect=c["reselect"]) if "budget_db" in c else None
+    return simulator.pack(topo, compute_routing(topo), tt, DEFAULT_PHY,
+                          SimParams(cycles=c["cycles"], warmup=c["warmup"]),
+                          phy_spec=spec, device=dev)
+
+
+def check_state(tag: str, st, want: dict) -> None:
+    """Every ``SimState`` leaf against the fixture's record (dtype, shape,
+    value): integers exact, floats within rel 1e-6."""
+    import base64
+    import zlib
+
+    import numpy as np
+    bad = []
+    for k, v in st._asdict().items():
+        w = want[k]
+        a = np.frombuffer(zlib.decompress(base64.b64decode(w["data"])),
+                          np.dtype(w["dtype"]).newbyteorder("<"))
+        a = a.reshape(w["shape"])
+        g = v.cpu().numpy()
+        if g.dtype != a.dtype or g.shape != a.shape:
+            bad.append(f"{k}: {g.dtype}{g.shape} != {a.dtype}{a.shape}")
+        elif a.dtype.kind == "f":
+            if not np.allclose(g, a, rtol=1e-6, atol=0.0, equal_nan=True):
+                bad.append(f"{k}: max |diff| {np.abs(g - a).max()!r}")
+        elif not (g == a).all():
+            bad.append(f"{k}: {(g != a).sum()} entries differ")
+    if set(want) != set(st._fields):
+        bad.append(f"leaves {sorted(st._fields)} != {sorted(want)}")
+    if bad:
+        raise AssertionError(f"{tag} disagrees with the reference: "
+                             f"{bad[:6]}{' ...' if len(bad) > 6 else ''}")
+
+
+def chunk_open(dev, kmods, smi, fx: dict, chunks: list) -> dict:
+    """Phase 33 (open): the 700-cycle point at the fixture's ``chunks``,
+    each run's wall printed on a line of its own; fault: the drain check
+    made to pass at the first chunk boundary past warm-up, while the lane
+    still carries traffic (a rerun at the first chunk that stops there)."""
+    import torch
+    from repro_torch.core import chunked, simulator
+    c = fx["case"]
+    ps = chunk_packed(c, dev)
+    rec = dict(walls_s={}, drain_cycle={})
+    zero(kmods)
+    for chunk in chunks:
+        t = time.perf_counter()
+        st = simulator.run(ps, chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check_state(f"chunk {chunk}", st, fx["chunks"][str(chunk)]["state"])
+        rec["walls_s"][chunk] = wall
+        rec["drain_cycle"][chunk] = int(st.drain_cycle)
+        say("chunk", f"4C4M wireless load {c['load']}, {c['cycles']} cycles "
+            f"with {c['warmup']} of warm-up, chunk {chunk}: wall {wall} s, "
+            f"{c['cycles'] / wall} cycles/s, drain_cycle "
+            f"{int(st.drain_cycle)}; {smi}")
+    rec["kernel_launches"] = counts(kmods)
+    expect_counts("chunk open", rec["kernel_launches"], {})
+
+    def drained(ss, st, t0, mem_on=False):
+        return torch.full((st.pkt_src.shape[0],), t0 >= c["warmup"],
+                          device=st.pkt_src.device)
+
+    with swapped(chunked, "drain_done", drained):
+        st = simulator.run(ps, chunk=chunks[0])
+    rec["faults_rejected"] = [rejected(
+        "chunk: drained while the lane carries traffic",
+        lambda: check_state("fault", st,
+                            fx["chunks"][str(chunks[0])]["state"]))]
+    return rec
+
+
+def chunk_living(dev, kmods, smi, live: dict) -> dict:
+    """Phase 33 (living): the drift point at its chunks.  Two faults, no
+    rerun: the chunk ignored (the loop run in ``CHUNK_CYCLES`` steps gives
+    the chunk-128 run, held against the chunk-96 record), and the window
+    replay skipped (the state the driver hands ``replay_windows``, closed
+    as the driver closes it)."""
+    import torch
+    from repro_torch.core import chunked, simulator
+    ps = chunk_packed(live["case"], dev)
+    rec = dict(walls_s={}, living={})
+    replay, seen = chunked.replay_windows, []
+
+    def spy(fn, st, stop, budgets):
+        seen.append((st, stop))
+        return replay(fn, st, stop, budgets)
+
+    zero(kmods)
+    got, handed = {}, {}
+    with swapped(chunked, "replay_windows", spy):
+        for chunk in live["case"]["chunks"]:
+            t = time.perf_counter()
+            got[chunk] = simulator.run(ps, chunk=chunk)
+            handed[chunk] = seen[-1]
+            torch.cuda.synchronize()
+            rec["walls_s"][f"living_{chunk}"] = time.perf_counter() - t
+            check_state(f"living chunk {chunk}", got[chunk],
+                        live["chunks"][str(chunk)]["state"])
+            rec["living"][chunk] = dict(
+                drain_cycle=int(got[chunk].drain_cycle),
+                wl_resel=int(got[chunk].wl_resel))
+    rec["kernel_launches"] = counts(kmods)
+    expect_counts("chunk living", rec["kernel_launches"], {})
+    w96 = live["chunks"]["96"]["state"]
+    why = [rejected("chunk ignored (chunk 96 run in chunks of 128)",
+                    lambda: check_state("fault", got[128], w96))]
+    pre, stop = handed[96]
+    ss = simulator.SimStatic(*(x[None] for x in ps.ss))
+    skipped = chunked._finalize(ss, pre, torch.tensor(
+        stop, dtype=torch.int32, device=dev))
+    skipped = simulator.SimState(*(x[0] for x in skipped))
+    why.append(rejected("window replay skipped (chunk 96)",
+                        lambda: check_state("fault", skipped, w96)))
+    rec["faults_rejected"] = why
+    return rec
+
+
+def chunk_sweep(dev, kmods, smi, sw: dict) -> dict:
+    """Phase 33 (sweep): the three fabrics under both drivers, with
+    ``sweep.POINTS_RUN``'s move; fault: ``driver`` ignored, so that the
+    monolithic call runs chunked (its chunked result held against the
+    monolithic record: the wireless lane's ``drain_cycle`` differs)."""
+    import torch
+    from repro_torch.core import sweep
+    from repro_torch.core.constants import Fabric, SimParams
+    rec = dict(walls_s={})
+    zero(kmods)
+    got = {}
+    pts = [sweep.SweepPoint(sw["case"]["n_chips"], sw["case"]["n_mem"],
+                            Fabric(f), load=sw["case"]["load"],
+                            p_mem=sw["case"]["p_mem"],
+                            sim=SimParams(**sw["case"]["sim"]))
+           for f in sw["case"]["fabrics"]]
+    before = sweep.POINTS_RUN
+    for driver in ("monolithic", "chunked"):
+        t = time.perf_counter()
+        ms = sweep.run_sweep_batched(pts, cycles=sw["case"]["cycles"],
+                                     driver=driver, device=dev)
+        torch.cuda.synchronize()
+        rec["walls_s"][f"sweep_{driver}"] = time.perf_counter() - t
+        for m, want in zip(ms, sw[driver]):
+            check_all(f"sweep {driver} {m.name}", m, want)
+        rec[f"sweep_{driver}_drain_cycle"] = [m.drain_cycle for m in ms]
+        got[driver] = ms
+    rec["points_run"] = sweep.POINTS_RUN - before
+    if rec["points_run"] != sw["points_run"]:
+        raise AssertionError(f"POINTS_RUN moved by {rec['points_run']}, "
+                             f"the reference's by {sw['points_run']}")
+    rec["kernel_launches"] = counts(kmods)
+    expect_counts("chunk sweep", rec["kernel_launches"], {})
+    rec["faults_rejected"] = [rejected(
+        "driver ignored (the monolithic call run chunked)",
+        lambda: [check_all("fault", m, want) for m, want in
+                 zip(got["chunked"], sw["monolithic"])])]
+    return rec
+
+
+def phase_chunk(part: str) -> int:
+    """Phase 33, in a process of its own for each part of ``CHUNK_PARTS``
+    (``python3 chip_smoke.py --phase chunk PART``), beside fig9: the
+    port's execution chunk (``simulator.run(chunk=)``) and
+    ``run_sweep_batched(driver=)`` on the card against
+    ``tests/torch_fixtures/chunk_reference.json``."""
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    kmods = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+             "ssd_scan": ssd_scan}
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" /
+                     "chunk_reference.json").read_text())
+    dev, smi = torch.device("cuda"), nvidia_smi()
+    t = time.perf_counter()
+    if part.startswith("open:"):
+        rec = chunk_open(dev, kmods, smi, fx["open"],
+                         [int(c) for c in part[5:].split(",")])
+    elif part == "living":
+        rec = chunk_living(dev, kmods, smi, fx["living"])
+    else:
+        rec = chunk_sweep(dev, kmods, smi, fx["sweep"])
+    rec.update(part=part, wall_s=time.perf_counter() - t, power=smi)
+    say("chunk", json.dumps(rec))
+    return 0
+
+
+class Apart:
+    """A phase run in a process of its own on the same card (``python3
+    chip_smoke.py --phase NAME ...``), beside the phases that follow: a
+    phase bound by one host thread's dispatch while the card idles
+    overlaps the others.  Its output goes to a temporary file, printed by
+    ``join``, which raises if the process failed; ``kill`` stops it if
+    this run ends first.  A thread notes when the process ends."""
+
+    def __init__(self, *phase: str):
         import tempfile
+        import threading
+        self.name = " ".join(phase)
         self.out = tempfile.TemporaryFile(mode="w+")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
-             "--phase", "fig9"], stdout=self.out, stderr=subprocess.STDOUT,
+             "--phase", *phase], stdout=self.out, stderr=subprocess.STDOUT,
             cwd=ROOT)
+        self.ended = threading.Thread(target=self._note_end, daemon=True)
+        self.ended.start()
 
-    def join(self, timeout: float) -> None:
+    def _note_end(self) -> None:
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def join(self, timeout: float) -> float:
+        """Print the process's output; its wall from start to end."""
         rc = self.proc.wait(timeout=timeout)
+        self.ended.join()
+        wall = self.t1 - self.t0
         self.out.seek(0)
         sys.stdout.write(self.out.read())
-        say("fig9", f"its process ended after "
-            f"{time.perf_counter() - self.t0:.1f} s, exit {rc}")
+        say(self.name, f"its process ended after {wall:.1f} s, exit {rc}")
         if rc:
-            raise AssertionError(f"phase fig9 failed in its process "
+            raise AssertionError(f"phase {self.name} failed in its process "
                                  f"(exit {rc})")
+        return wall
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -3578,6 +3820,9 @@ def main(argv=None) -> int:
         # phase 27 (a), in a process of its own
         pathlib.Path(argv[2]).write_text(json.dumps(dryrun_fake()))
         return 0
+    if argv[:2] == ["--phase", "chunk"] and argv[2:] in (
+            [p] for p in CHUNK_PARTS):     # phase 33, one part
+        return phase_chunk(argv[2])
     if argv == ["--phase", "fig9"]:      # fig9, in a process of its own
         from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
         phase_fig9(torch.device("cuda"),
@@ -3625,13 +3870,19 @@ def run_phases(dev, name: str, smi: str, started: list) -> int:
     # 27), run in processes of their own beside the other host-bound
     # phases; the kernel and model phases run before and after, alone on
     # the card
-    fig9 = Fig9Apart()
+    fig9 = Apart("fig9")
     started.append(fig9)
     apart = DryrunApart()
     started.append(apart)
+    # phase 33, the execution chunk and the sweep's drivers, in processes
+    # of their own (host-bound, like fig9)
+    chunk = [Apart("chunk", part) for part in CHUNK_PARTS]
+    started.extend(chunk)
     simulator_beside_fig9(dev, kmods, smi)
     say("simulator", f"phases 4-5, 12-14, 20-21 and 28 wall "
         f"{time.perf_counter() - fig9.t0:.1f} s, beside fig9")
+    say("chunk", f"phase 33 wall {max(a.join(timeout=600) for a in chunk)}"
+        f" s in {len(chunk)} processes, beside fig9")
     fig9.join(timeout=1100)
     paths.update(phase_hybrid(dev, kmods, smi))
     paths.update(phase_moe(dev, kmods, smi))

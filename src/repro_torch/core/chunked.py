@@ -1,17 +1,28 @@
 """Drain-aware chunked execution driver (port of ``repro.core.chunked``).
 
-The driver steps all lanes of a batch in lockstep, ``CHUNK_CYCLES`` cycles
-per chunk.  Between chunks a ``drain_done`` predicate asks, per lane,
+The driver steps all lanes of a batch in lockstep, ``chunk`` cycles per
+chunk.  Between chunks a ``drain_done`` predicate asks, per lane,
 whether the state can ever change again (no packet in any slot, empty
 pipes, no injection burst, no future birth, all busy clocks expired, past
 warm-up).  This is the driver's one host synchronisation per chunk.
 
+Two cycle counts are kept apart, as in the reference:
+
+- ``chunk`` is the *execution* chunk: how many cycles run between drain
+  checks (and host syncs).  Any positive value gives the same state in
+  every leaf but ``drain_cycle``, which records the chunk boundary where
+  a lane stopped.  It defaults to ``CHUNK_CYCLES``.
+- ``CHUNK_CYCLES`` is the living channel's *window cadence*: the step
+  applies the window update at every ``t % CHUNK_CYCLES == 0`` whatever
+  the chunk, so chunked runs of any chunk size and the monolithic oracle
+  agree on when the channel moves.
+
 Per-lane semantics are the reference's, where ``lax.map`` runs each lane's
 ``while_loop`` on its own:
 
-- a lane keeps stepping while ``t0 < cycles`` and it has not drained at a
-  chunk boundary ``t0``; the first boundary where that fails is its stop
-  cycle, and from then on the lane is frozen by mask;
+- a lane keeps stepping while ``t0 < cycles`` and it has not drained at
+  an execution-chunk boundary ``t0``; the first boundary where that
+  fails is its stop cycle, and from then on the lane is frozen by mask;
 - inside a chunk each cycle is masked per lane by ``t < cycles`` (the
   reference's per-cycle ``lax.cond``), so a budget that ends mid-chunk
   freezes exactly there;
@@ -28,13 +39,15 @@ bitwise equal to a solo run of its point.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Callable, Sequence
 
 import torch
 
 from repro_torch.core.traffic import NO_PKT
 
-# Cycles per chunk (the reference's semantic constant).
+# The living channel's window cadence (the reference's semantic constant),
+# and the default execution chunk.
 CHUNK_CYCLES = 128
 
 
@@ -106,8 +119,9 @@ def replay_windows(window_fn: Callable, st, stop: Sequence[int],
     each lane, masking the lanes whose range does not hold ``b``.
 
     The step applies the living-channel update at every boundary it runs
-    through; a lane that stopped at ``stop`` (a drain, chunk-aligned)
-    never ran the later ones, while a monolithic run of its budget does.
+    through; a lane that stopped at ``stop`` (a drain, aligned to the
+    execution chunk and not necessarily to the window) never ran the
+    later ones, while a monolithic run of its budget does.
     The update writes only the dynamic link tables and ``wl_resel``, so
     replaying it leaves the drained lane bitwise equal to that run.
     """
@@ -122,19 +136,24 @@ def replay_windows(window_fn: Callable, st, stop: Sequence[int],
 
 
 def run_chunked(step: Callable, ss, st, budgets: Sequence[int],
-                mem_on: bool = False, window_fn: Callable | None = None):
+                mem_on: bool = False, window_fn: Callable | None = None,
+                chunk: int = CHUNK_CYCLES):
     """Drive ``step(st, t) -> st`` over lane-leading ``st`` to each lane's
-    budget, with early drain exit.
+    budget, with early drain exit every ``chunk`` cycles.
 
     ``budgets`` are the lanes' cycle budgets on the host (equal to
-    ``ss.cycles``): where every lane is stepping and the whole chunk lies
-    within every budget, no per-cycle mask is needed.  ``mem_on`` as in
-    ``drain_done``.  ``window_fn(st, t) -> st`` is the living channel's
-    boundary update, which the step applies at every multiple of
-    ``CHUNK_CYCLES``; with it the boundaries a drained lane skipped are
-    replayed (``replay_windows``).
+    ``ss.cycles``): where every lane is stepping and the cycle lies within
+    every budget, no per-cycle mask is needed, and no cycle at or past
+    the largest budget is stepped.  ``mem_on`` as in ``drain_done``.
+    ``window_fn(st, t) -> st`` is the living channel's boundary update,
+    which the step applies at every multiple of ``CHUNK_CYCLES`` (the
+    window cadence, not ``chunk``); with it the boundaries a drained lane
+    skipped are replayed (``replay_windows``).
     """
-    G = len(budgets)
+    if not isinstance(chunk, numbers.Integral) or chunk < 1:
+        raise ValueError(f"chunk must be a positive integer; got {chunk!r}")
+    chunk = int(chunk)
+    G, lo, hi = len(budgets), min(budgets), max(budgets)
     cycles = ss.cycles
     dev = cycles.device
     stopped = torch.zeros(G, dtype=torch.bool, device=dev)
@@ -148,11 +167,13 @@ def run_chunked(step: Callable, ss, st, budgets: Sequence[int],
         cont_h = cont.cpu()            # the one host sync per chunk
         if not bool(cont_h.any()):
             break
-        unmasked = bool(cont_h.all()) and t0 + CHUNK_CYCLES <= min(budgets)
-        for t in range(t0, t0 + CHUNK_CYCLES):
+        all_on = bool(cont_h.all())
+        # a cycle at or past every budget is masked off in every lane
+        for t in range(t0, min(t0 + chunk, hi)):
             new = step(st, t)
+            unmasked = all_on and t < lo
             st = new if unmasked else _select(cont & (t < cycles), new, st)
-        t0 += CHUNK_CYCLES
+        t0 += chunk
     if window_fn is not None:
         st = replay_windows(window_fn, st, stop.tolist(), budgets)
     return _finalize(ss, st, stop)

@@ -78,6 +78,18 @@ gather explicitly, and the rest go through ``_jidx``, which applies the
 same rule.  Gather indices are int64 at the point of use; stored dtypes
 stay the reference's.  Nothing in the step reads a tensor value on the
 host, so the step never synchronises with the device.
+
+Drivers
+-------
+``run``, ``run_batch``, ``run_from`` and ``run_lanes`` take ``driver`` and
+``chunk``.  The default ``driver="chunked"`` (``core/chunked.py``) steps
+``chunk`` cycles between drain checks, one host sync per chunk, and stops
+a drained lane early.  ``chunk`` is the execution chunk only: any
+positive value gives the same state in every leaf but ``drain_cycle``.
+``CHUNK_CYCLES`` stays the living channel's window cadence, the step's
+``t % CHUNK_CYCLES == 0``, whatever the chunk.  ``driver="monolithic"``
+steps one shared budget with no drain check: the oracle the chunked
+driver is held against.
 """
 from __future__ import annotations
 
@@ -1673,14 +1685,15 @@ def _state_dims(ps: PackedSim) -> tuple:
 def run_lanes(ss: SimStatic, st: SimState, B: int, budgets: Sequence[int],
               driver: str = "chunked", mem_on: bool = False,
               phy_on: bool = False, drift_on: bool = False,
-              reselect: bool = False) -> SimState:
+              reselect: bool = False, chunk: int = CHUNK_CYCLES) -> SimState:
     """Drive lane-leading ``ss``/``st`` to each lane's budget.
 
     ``budgets`` are the lanes' ``ss.cycles`` on the host.
     ``driver="monolithic"`` runs the fixed-length oracle (one shared
-    budget; living points get their window updates in the step alone).
-    The flags as in ``make_step``; the multicast terms run when any lane
-    has a multicast group.
+    budget; living points get their window updates in the step alone;
+    ``chunk`` is not used).  ``chunk`` is the chunked driver's execution
+    chunk (``chunked.run_chunked``).  The flags as in ``make_step``; the
+    multicast terms run when any lane has a multicast group.
     """
     flags = dict(mem_on=mem_on, phy_on=phy_on, drift_on=drift_on,
                  reselect=reselect)
@@ -1699,17 +1712,19 @@ def run_lanes(ss: SimStatic, st: SimState, B: int, budgets: Sequence[int],
     with torch.no_grad():
         return chunked.run_chunked(
             lambda s, t: step(ss, d, s, t), ss, st, budgets, mem_on,
-            window_fn=wfn)
+            window_fn=wfn, chunk=chunk)
 
 
 def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
-              driver: str = "chunked") -> SimState:
+              driver: str = "chunked",
+              chunk: int = CHUNK_CYCLES) -> SimState:
     """Run same-bucket-shape points as lanes of one lockstep batch.
 
     Returns a ``SimState`` whose leaves carry a leading lane axis, ordered
     as ``pss``.  Cycle budgets and warm-ups are per-lane data and may
     differ; ``cycles`` overrides every lane's budget.  Each lane's result
-    equals a solo run of that point, bit for bit.
+    equals a solo run of that point, bit for bit.  ``driver`` and
+    ``chunk`` as in ``run_lanes``.
     """
     if not pss:
         raise ValueError("run_batch needs at least one point")
@@ -1730,18 +1745,19 @@ def run_batch(pss: Sequence[PackedSim], cycles: int | None = None,
                     living=ps0.drift_on or ps0.reselect,
                     R=int(ps0.ss.wl_serv_r.shape[0]), lanes=len(pss),
                     device=ss.cycles.device)
-    return run_lanes(ss, st, ps0.B, budgets, driver, **ps0.flags())
+    return run_lanes(ss, st, ps0.B, budgets, driver, **ps0.flags(),
+                     chunk=chunk)
 
 
-def run(ps: PackedSim, cycles: int | None = None,
-        driver: str = "chunked") -> SimState:
+def run(ps: PackedSim, cycles: int | None = None, driver: str = "chunked",
+        chunk: int = CHUNK_CYCLES) -> SimState:
     """Single-point API: a batch of one, returned without the lane axis."""
-    out = run_batch([ps], cycles=cycles, driver=driver)
+    out = run_batch([ps], cycles=cycles, driver=driver, chunk=chunk)
     return SimState(*(x[0] for x in out))
 
 
 def run_from(ss: SimStatic, st: SimState, driver: str = "chunked",
-             **flags) -> SimState:
+             chunk: int = CHUNK_CYCLES, **flags) -> SimState:
     """Run one point from a given (e.g. carried) state, cycle 0 to
     ``ss.cycles``; ``ss``/``st`` and the result have no lane axis.
     ``flags`` (``mem_on``, ``phy_on``, ``drift_on``, ``reselect``) must be
@@ -1749,5 +1765,5 @@ def run_from(ss: SimStatic, st: SimState, driver: str = "chunked",
     B = int(ss.b_dst.shape[0])
     out = run_lanes(SimStatic(*(x[None] for x in ss)),
                     SimState(*(x[None] for x in st)), B,
-                    [int(ss.cycles)], driver, **flags)
+                    [int(ss.cycles)], driver, **flags, chunk=chunk)
     return SimState(*(x[0] for x in out))

@@ -13,10 +13,16 @@ port of ``repro.core.sweep``.
   ``reselect``; with or without multicast groups) split into separate
   batches by ``PackedSim.shape_key``.
 
-Results equal ``[run_point(...) for each point]`` exactly.  The reference's
-``devices`` argument (``pmap`` sharding over host devices) has no
-counterpart: one card, one lane dimension.  Every entry point takes
-``device`` (``None`` = CUDA; the CPU only when asked for).
+Results equal ``[run_point(...) for each point]`` exactly.
+``run_sweep_batched(driver=)`` passes the driver to
+``simulator.run_batch``: ``"chunked"`` (the default; the execution chunk
+is ``chunked.CHUNK_CYCLES``, which is also the living channel's window
+cadence) or ``"monolithic"`` (the fixed-length oracle; every point of a
+call then needs one budget).  ``POINTS_RUN`` counts the points simulated
+through ``run_sweep_batched`` in this process, as the reference's does.
+The reference's ``devices`` argument (``pmap`` sharding over host
+devices) has no counterpart: one card, one lane dimension.  Every entry
+point takes ``device`` (``None`` = CUDA; the CPU only when asked for).
 """
 from __future__ import annotations
 
@@ -33,6 +39,10 @@ from repro_torch.core.routing import compute_routing
 from repro_torch.core.topology import build_xcym
 
 HARMONIZED_DIMS = ("B", "S", "R", "K", "CS", "CR", "M", "P", "Y", "BK")
+
+# Cumulative points simulated via run_sweep_batched (per process); a
+# benchmark runner diffs it around each suite to report points/s.
+POINTS_RUN = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -114,12 +124,16 @@ def _build_point(p: SweepPoint):
 
 def run_sweep_batched(points: Sequence[SweepPoint],
                       cycles: int | None = None,
+                      driver: str = "chunked",
                       device=None) -> list[Metrics]:
     """Simulate a grid of points in as few lockstep batches as possible.
 
     Returns one ``Metrics`` per point, in input order, equal to
-    ``[run_point(...) for each point]``.
+    ``[run_point(...) for each point]``.  ``driver="monolithic"`` forces
+    the fixed-length oracle (see ``simulator.run_batch``).
     """
+    global POINTS_RUN
+    POINTS_RUN += len(points)
     dev = _device.resolve(device)
     built = [_build_point(p) for p in points]
     natural = [simulator.pack_dims(topo, tt) for topo, _, tt, _ in built]
@@ -146,7 +160,7 @@ def run_sweep_batched(points: Sequence[SweepPoint],
             by_shape.setdefault(packed[i].shape_key(), []).append(i)
         for sub in by_shape.values():
             pss = [packed[i] for i in sub]
-            st = simulator.run_batch(pss, cycles=cycles)
+            st = simulator.run_batch(pss, cycles=cycles, driver=driver)
             ms = compute_metrics_batch(
                 pss, st, [built[i][3] for i in sub],
                 [built[i][2].offered_load for i in sub], cycles=cycles)
