@@ -6,12 +6,15 @@ Phases, each printing one line (``[phase] ...``) and failing loudly (the
 order in which they run is given after the list):
 
 1. environment: torch, the card, its power limit (nvidia-smi);
-2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source,
-   with ptxas's registers, spills and warnings of each kernel and the
-   tensor-core kernels' shared memory (it fails on a spill in either, on
-   any of the SSD kernel's eight instances, P boxes 1-4 with x by TMA or
-   by the threads, missing from the report, or on ``setmaxnreg`` ignored
-   in the flash kernel, C7508);
+2. kernel build: nvcc of every ``src/repro_torch/kernels/csrc`` source
+   (the CUDA-core kernels' first versions, ``csrc/v1/``, too: phases 6
+   and 7 time them beside the redesigned ones), with ptxas's registers,
+   spills and warnings of each kernel, the tensor-core kernels' shared
+   memory and the CUDA-core kernels' blocks per SM (it fails on a spill
+   in either tensor-core or either CUDA-core kernel, on any of the SSD
+   kernel's eight instances, P boxes 1-4 with x by TMA or by the threads,
+   missing from the report, or on ``setmaxnreg`` ignored in the flash
+   kernel, C7508);
 3. RMSNorm: drives ``ops.rmsnorm`` (forward and backward) with the launch
    counts set to 0 and asserts the kernel ran; then holds the kernel
    against its plain version at each shape (f32 tol 1e-5, bf16 tol 2e-2)
@@ -42,7 +45,10 @@ order in which they run is given after the list):
    (a yardstick the port never calls; hymba's window as a mask) with the
    name of the kernel SDPA ran;
    the CUDA-core kernel, its plain version and SDPA on granite-8b's f32
-   inputs;
+   inputs, and the CUDA-core kernel beside its first version
+   (``csrc/v1/flash_attention.cu``, built in this call) in turns on those
+   inputs and on hymba-1.5b's f32 shape (hd 64, the window; also held to
+   2e-5), each with its share of the bound;
 7. SSD, two kernels chosen by ``ssd_scan.route``: the tensor-core kernel
    (bf16 x, B, C, Q 64-256, even P; x by TMA where P % 16 == 0, else by
    the threads) and the CUDA-core kernel (the rest).  The
@@ -50,7 +56,11 @@ order in which they run is given after the list):
    ``tests/test_kernels_ssd.py`` (f32 1e-4, bf16 5e-2) and at mamba2-1.3b's
    f32 cell, where ``ops.ssd`` whole (one launch) is held against its
    plain composition on the CPU (2e-4); times of the kernel, its plain
-   version, ``ops.ssd`` and ``ops.ssd`` composed with the plain version.
+   version, ``ops.ssd`` and ``ops.ssd`` composed with the plain version,
+   the kernel beside its first version (``csrc/v1/ssd_scan.cu``) in turns,
+   the kernel with B and C by group as ``ops.ssd`` gives them (1e-4 of the
+   largest entry), each with its share of the bound, and the kernel at
+   hymba-1.5b's f32 cell (P 50, N 16, 64 heads by group; 1e-4).
    The tensor-core kernel at bf16 cases of (Q, P, N) with ragged chunks
    and heads and B, C by group (``heads`` 1, 8, 64), P not a multiple of
    16 (24, 50, 100, 130, 200, 250: x by the threads, one to four boxes, Q
@@ -294,12 +304,21 @@ order in which they run is given after the list):
     512-cycle budget through ``run_sweep_batched(driver="monolithic")``
     and ``driver="chunked"`` (its wireless lane drains at 384 and stays
     frozen while the wireline lanes run on), with ``sweep.POINTS_RUN``'s
-    move; no kernel launch.
+    move; no kernel launch;
+34. the f32 path to the CUDA-core kernels: hymba-1.5b at full width and 2
+    layers with f32 weights (``Model(param_dtype=torch.float32)``, drawn
+    from a seed on the card), B 2 x S 2560 past the 2048-token window:
+    ``impl="pallas"`` launches the CUDA-core flash kernel twice (hd 64,
+    the window) and the CUDA-core SSD kernel twice (P 50, N 16, B and C by
+    group), nothing else; held against ``impl="naive"`` by the logits at 7
+    positions (2^-8 of the largest) and the loss (rel 1e-4); faults: keys
+    128 back dropped, ``y_diag`` zeroed.  The closing line's entries of
+    the two CUDA-core kernels take their ``launches`` from this phase.
 
 Phase 15 (fig9) runs in a second process on the same card (``python3
 chip_smoke.py --phase fig9``, ``Apart``): one host thread's dispatch
 bounds it for 6-10 minutes while the card idles.  This process runs
-phases 1-3 and 6-11 alone, then starts fig9's process, a third one for
+phases 1-3, 6-7, 34 and 8-11 alone, then starts fig9's process, a third one for
 27 (a) and (c) (``DryrunApart``: it allocates nothing on the card and
 runs no kernel) and phase 33's four, runs 4-5, 12-14, 20-21 and 28 (the
 other host-bound phases) beside them, prints phase 33's output and then
@@ -307,7 +326,7 @@ fig9's when their processes end (failing if one failed), then runs
 16-19, 29-32 and 22-27.  So the walls of phases 4-5, 12-15, 20-21, 28
 (the examples, train_lm's step times among them) and 33 and of 27 (a)
 and (c) are taken beside another process; the kernel timings (phases 3,
-6 and 7) and the model phases 8-11, 16-19, 22-26 and 29-32 are taken
+6 and 7) and the model phases 8-11, 16-19, 22-26, 29-32 and 34 are taken
 with the card to themselves.
 
 Phases 12-14 each plant two faults that their checks must reject: as
@@ -532,6 +551,8 @@ FLASH_PATH = {    # (B, Sq, Skv, H, Hkv, hd, causal, window, dtype name)
     "granite-8b q_offset": (1, 1024, 4096, 32, 8, 128, True, 0, "bfloat16"),
     "granite-8b f32": (2, 4096, 4096, 32, 8, 128, True, 0, "float32"),
     "gemma-7b f32": (1, 4096, 4096, 16, 16, 256, True, 0, "float32"),
+    # the f32 hymba path's shape (phase 34): hd 64, the 2048-token window
+    "hymba-1.5b f32": (2, 4096, 4096, 25, 5, 64, True, 2048, "float32"),
 }
 # the path shapes also timed against the plain version and SDPA
 FLASH_LIBRARY = ("granite-8b", "hymba-1.5b", "mixtral-8x22b",
@@ -852,6 +873,10 @@ def hybrid_faults(tf, params) -> dict:
                                       params["layers"]["ln1"])}
 
 
+# kernels whose ptxas report must show no spill (the first versions of the
+# CUDA-core kernels, csrc/v1/, are timed only)
+SPILL_FREE = ("flash_attention_tc", "ssd_scan_tc", "flash_attention",
+              "ssd_scan")
 FLASH_TC = ("flash_attention_tc", "flash_attention")   # the count of
 SSD_TC = ("ssd_scan_tc", "ssd_scan")    # a tensor-core route, and of both
 
@@ -887,10 +912,12 @@ def zero(kmods) -> None:
 
 
 def build_report(_build, logs: dict) -> None:
-    """ptxas's lines for each kernel (registers, spills, warnings) and the
-    tensor-core kernels' shared memory; fails on a spill in either
-    tensor-core kernel (every instance of the SSD one: P boxes 1-4, x by
-    TMA or by the threads, each of which must be reported) or on
+    """ptxas's lines for each kernel (registers, spills, warnings), the
+    tensor-core kernels' shared memory and the CUDA-core kernels' blocks
+    per SM; fails on a spill in either tensor-core kernel (every instance
+    of the SSD one: P boxes 1-4, x by TMA or by the threads, each of which
+    must be reported) or in either CUDA-core kernel (not their first
+    versions, ``csrc/v1/``, built only to be timed beside them), or on
     ``setmaxnreg`` ignored (C7508)."""
     import ctypes
     import re
@@ -910,7 +937,7 @@ def build_report(_build, logs: dict) -> None:
                 say("build", f"{k} {entry}: {line.strip()}")
                 if "registers" in line:
                     seen.add(entry)
-        if k in ("flash_attention_tc", "ssd_scan_tc") and (
+        if k in SPILL_FREE and (
                 "C7508" in log or re.search(r"[1-9]\d* bytes spill", log)):
             raise AssertionError(f"{k}: ptxas spills or ignores "
                                  f"setmaxnreg:\n{log}")
@@ -932,6 +959,45 @@ def build_report(_build, logs: dict) -> None:
     q = SSD_HYMBA_PATH[3:]
     say("build", f"ssd_scan (CUDA cores) dynamic shared memory at hymba's "
         f"(Q, P, N) {q}: {ssd_scan.smem_bytes('cuda_core', *q)} bytes")
+    fa = _build.load("flash_attention").flash_attention_blocks_per_sm
+    fa.argtypes, fa.restype = [ctypes.c_int64, ctypes.c_int], ctypes.c_int
+    sb = _build.load("ssd_scan").ssd_intra_chunk_blocks_per_sm
+    sb.argtypes, sb.restype = [ctypes.c_int64] * 3, ctypes.c_int
+    say("build", "CUDA-core kernels' blocks per SM (occupancy calculator): "
+        "flash_attention f32 by head dim "
+        + json.dumps({hd: fa(hd, 1) for hd in (16, 32, 64, 128, 256)})
+        + ", ssd_scan by (Q, P, N) " + json.dumps(
+            {str(q): sb(*q) for q in ((128, 64, 128), (128, 50, 16),
+                                      (16, 8, 16), (256, 50, 16))}))
+
+
+def first_version(name: str):
+    """The C entry point of CUDA-core kernel ``name`` (``flash_attention``
+    or ``ssd_scan``) as first written, ``csrc/v1/``, built from its source
+    in this call to be timed beside the redesigned kernel.  The first SSD
+    kernel takes B and C per head (no ``heads``)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if name == "flash_attention":
+        fn = _build.load("flash_attention_v1").flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = _build.load("ssd_scan_v1").ssd_intra_chunk_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5 + [
+            ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def in_turns(new, old, iters: int) -> dict:
+    """``new`` and ``old`` timed in turns (new, old, old, new) in one
+    call: each one's mean of its two times, and the four."""
+    turns = [time_ms(f, iters) for f in (new, old, old, new)]
+    return dict(ms=(turns[0] + turns[3]) / 2,
+                first_version_ms=(turns[1] + turns[2]) / 2,
+                turns_ms=turns)
 
 
 def top_kernel(fn) -> str:
@@ -1067,6 +1133,28 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
                 rec["library_kernel"] = top_kernel(library)
             rec["tflops"] = flops / rec["ms"] / 1e9
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        if tag in ("granite-8b f32", "hymba-1.5b f32"):
+            # the CUDA-core kernel and its first version on the same
+            # inputs, in turns
+            o = torch.empty_like(q)
+            v1 = first_version("flash_attention")
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def old():
+                err = v1(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), q.shape[0], k.shape[0], Sq, Skv, hd,
+                         int(causal), window, q_offset, hd ** -0.5, 0,
+                         stream)
+                if err:
+                    raise RuntimeError(f"first flash kernel: cudaError {err}")
+
+            rec["in_turns"] = in_turns(
+                lambda: flash_attention.launch_route("cuda_core", q, k, v, o,
+                                                     **kw), old, iters=5)
+            rec["first_version_ms"] = rec["in_turns"]["first_version_ms"]
+            rec["share_of_bound_in_turns"] = rec["bound_ms"] \
+                / rec["in_turns"]["ms"]
+            rec["power"] = nvidia_smi()
         rows.append(rec)
         say("flash", json.dumps(rec))
         del q, k, v, got, want, d
@@ -1086,7 +1174,10 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=[2, 4096, 32, 8, 128],
-            dtype=dtype))
+            dtype=dtype, share_of_bound=head["share_of_bound"]))
+        if "first_version_ms" in head:
+            entries[-1].update(first_version_ms=head["first_version_ms"],
+                               in_turns=head["in_turns"])
     entries[0]["per_case"] = rows
     return tuple(entries)
 
@@ -1199,11 +1290,67 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
                ops_ssd_ms=time_ms(lambda: ops.ssd(x, dtv, A, B, C, chunk=Q),
                                   iters=5))
     # ``ops.ssd`` composed with the plain intra-chunk block, on the card
-    with swapped(ssd_scan, "ssd_intra_chunk", ref.ssd_intra_chunk_ref):
+    with swapped(ssd_scan, "ssd_intra_chunk", plain):
         rec["ops_ssd_plain_ms"] = time_ms(
             lambda: ops.ssd(x, dtv, A, B, C, chunk=Q), iters=5)
+    # the kernel and its first version on the same inputs, in turns
+    outs = [torch.empty((b * h, c, Q, p), device=dev),
+            torch.empty((b * h, c, p, n), device=dev),
+            torch.empty((b * h, c), device=dev)]
+    v1 = first_version("ssd_scan")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old():
+        err = v1(*(t.data_ptr() for t in (*args, *outs)), b * h, c, Q, p, n,
+                 0, stream)
+        if err:
+            raise RuntimeError(f"first SSD kernel: cudaError {err}")
+
+    rec["in_turns"] = in_turns(lambda: ssd_scan.launch_route(
+        "cuda_core", *args, *outs), old, iters=10)
+    rec["first_version_ms"] = rec["in_turns"]["first_version_ms"]
+    rec["share_of_bound"] = bound_ms / rec["ms"]
+    rec["share_of_bound_in_turns"] = bound_ms / rec["in_turns"]["ms"]
+    rec["tflops"] = flops / rec["ms"] / 1e9
+    # as ops.ssd now launches it: B and C read by group (heads=64), each
+    # read once; the bound counts them once
+    grp = (*args[:3], args[3][:b].contiguous(), args[4][:b].contiguous())
+    err_g = check("mamba2-1.3b cell, B and C by group", grp, 1e-4,
+                  scaled=True, heads=h)
+    g_bytes = sum(t.numel() * t.element_size() for t in grp) \
+        + 4 * cells * (Q * p + p * n + 1)
+    g_bound, g_by = bound(g_bytes, flops, H100_F32_FLOPS)
+    rec["by_group"] = dict(
+        heads=h, max_abs_err=err_g, bound_ms=g_bound, bound_by=g_by,
+        ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*grp, heads=h)))
+    rec["by_group"]["share_of_bound"] = g_bound / rec["by_group"]["ms"]
+    rec["power"] = nvidia_smi()
     say("ssd", json.dumps(rec))
     mamba_f32_cell = rec
+    # the f32 hymba path's cell (phase 34 at B 2 x S 4096): 64 heads of P
+    # 50, N 16 over 32 chunks of 128, B and C by group
+    G, heads, c, Q, P, N = SSD_HYMBA_PATH
+    hx, hdt, hA, hB, hC = cell_inputs(G * heads, c, Q, P, N, "float32")
+    hargs = (hx, hdt, hA, hB[:G].contiguous(), hC[:G].contiguous())
+    err_h = check("hymba-1.5b f32 cell", hargs, 1e-4, scaled=True,
+                  heads=heads)
+    cells = G * heads * c
+    tri = Q * (Q + 1) // 2
+    h_flops = 2.0 * cells * (tri * N + tri * P + Q * P * N)
+    h_bytes = sum(t.numel() * t.element_size() for t in hargs) \
+        + 4 * cells * (Q * P + P * N + 1)
+    h_bound, h_by = bound(h_bytes, h_flops, H100_F32_FLOPS)
+    hy32 = dict(case="hymba-1.5b f32 cell", route="cuda_core", BH=G * heads,
+                c=c, Q=Q, P=P, N=N, heads=heads, dtype="float32",
+                max_abs_err=err_h, bound_ms=h_bound, bound_by=h_by,
+                gflop=h_flops / 1e9, mbytes=h_bytes / 1e6,
+                ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(
+                    *hargs, heads=heads)),
+                plain_ms=time_ms(lambda: plain(*hargs, heads=heads),
+                                 iters=5))
+    hy32["share_of_bound"] = h_bound / hy32["ms"]
+    say("ssd", json.dumps(hy32))
+    del hx, hdt, hA, hB, hC, hargs, grp
 
     # the tensor-core kernel: bf16 x, B, C by group, f32 dt and A
     def tc_inputs(G, heads, c, Q, P, N):
@@ -1331,8 +1478,83 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
         plain_ms=cell["plain_ms"], bound_ms=cell["bound_ms"],
         bound_by=cell["bound_by"], library_ms=None,
         shape=[cell["BH"], cell["c"], cell["Q"], cell["P"], cell["N"]],
-        dtype="float32")
+        dtype="float32", share_of_bound=cell["share_of_bound"],
+        first_version_ms=cell["first_version_ms"],
+        in_turns=cell["in_turns"], by_group=cell["by_group"],
+        hymba_f32_cell={k: hy32[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")})
     return tc, tc_x, cuda_core
+
+
+F32_HYMBA = dict(B=2, S=2560)        # phase 34: past the 2048-token window
+POSITIONS_F32 = [0, 1, 127, 128, 2047, 2048, 2559]
+# phase 34, impl="pallas" vs "naive" with f32 weights: every product in f32
+# on both sides, so they differ by f32 summation orders and by the chunk
+# states' bf16 rounding (ssd_chunked) where those orders flip one.  Logits
+# to 2^-8 of the largest, the loss to rel 1e-4.
+F32_LOGIT_REL = 2.0 ** -8
+F32_LOSS_RTOL = 1e-4
+
+
+def phase_f32_hymba(dev, kmods, smi) -> dict:
+    """Phase 34: hymba-1.5b at full width and 2 layers with f32 weights
+    (``Model(param_dtype=torch.float32)``, weights drawn from a seed on the
+    card), B 2 x S 2560.  Attention and the SSD block see f32 inputs, so
+    ``impl="pallas"`` takes both CUDA-core kernels: 2 flash launches (hd 64,
+    the 2048-token window) and 2 SSD launches (P 50, N 16, B and C by
+    group), and no other.  Held against ``impl="naive"`` by the logits at
+    ``POSITIONS_F32`` and the loss; the check must reject two planted
+    faults (keys 128 back dropped; ``y_diag`` zeroed).  Returns the
+    forward's launch counts, its wall and errors."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models.model import Model
+    t = time.perf_counter()
+    cfg = get_config("hymba-1.5b").scaled(n_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    f32 = torch.float32
+    pallas, naive = (Model(cfg, impl=impl, param_dtype=f32)
+                     for impl in ("pallas", "naive"))
+    params = pallas.init(gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (F32_HYMBA["B"], F32_HYMBA["S"]),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    with torch.no_grad():
+        zero(kmods)
+        t0 = time.perf_counter()
+        got = logits_at(pallas, params, batch, POSITIONS_F32)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        launches = counts(kmods)
+        expect_counts("f32 hymba forward", launches,
+                      per_layer(2, "flash_attention", "ssd_scan"))
+        want = logits_at(naive, params, batch, POSITIONS_F32)
+        loss = {m.impl: float(m.loss(params, batch))
+                for m in (pallas, naive)}
+
+    def measure():
+        with torch.no_grad():
+            lg = logits_at(pallas, params, batch, POSITIONS_F32)
+        return float((lg - want).abs().max() / want.abs().max())
+
+    err = float((got - want).abs().max() / want.abs().max())
+    loss_rel = abs(loss["pallas"] - loss["naive"]) / abs(loss["naive"])
+    if not (err <= F32_LOGIT_REL and loss_rel <= F32_LOSS_RTOL
+            and math.isfinite(loss["pallas"])):
+        raise AssertionError(f"f32 hymba: pallas vs naive logits {err} "
+                             f"(limit {F32_LOGIT_REL}), loss {loss}")
+    faults = planted_faults(
+        {"keys 128 back dropped": flash_faults(ops)["keys 128 back dropped"],
+         "y_diag zeroed": ssd_faults(ssd_scan)["y_diag zeroed"]},
+        pallas, params, batch, measure, F32_LOGIT_REL)
+    out = dict(arch="hymba-1.5b", layers=2, param_dtype="float32",
+               **F32_HYMBA, launches=launches, forward_s=forward_s,
+               logit_err=err, limit=F32_LOGIT_REL, loss=loss,
+               loss_rel=loss_rel, faults=faults,
+               wall_s=time.perf_counter() - t, power=smi)
+    say("f32-hymba", json.dumps(out))
+    return out
 
 
 def phase_reference(dev, kmods, tag: str, fixture: str, expect: dict,
@@ -3864,6 +4086,14 @@ def run_phases(dev, name: str, smi: str, started: list) -> int:
 
     flash_tc, flash_cc = phase_flash(dev, flash_attention, ops, ref, kmods)
     ssd_tc, ssd_tcx, ssd_cc = phase_ssd(dev, ssd_scan, ops, ref, kmods)
+    f32 = phase_f32_hymba(dev, kmods, smi)
+    # the CUDA-core kernels' main path: the f32 hymba forward of phase 34;
+    # their ops.* paths of phases 6-7 kept beside it
+    for entry, count in ((flash_cc, "flash_attention"),
+                         (ssd_cc, "ssd_scan")):
+        entry.update(launches_ops_path=entry["launches"],
+                     ops_path=entry["path"], launches=f32["launches"][count],
+                     path="hymba-1.5b f32 forward, 2 layers (phase 34)")
     paths = models_8_to_11(dev, kmods, smi)
     # fig9 (phase 15) and phase 27 (a) and (c), the dry run's fake grid
     # (it touches no memory of the card and runs no kernel; read in phase

@@ -24,7 +24,10 @@ SOURCES = {"rmsnorm": "rmsnorm.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_tc": "flash_attention_tc.cu",
            "ssd_scan": "ssd_scan.cu",
-           "ssd_scan_tc": "ssd_scan_tc.cu"}
+           "ssd_scan_tc": "ssd_scan_tc.cu",
+           # the CUDA-core kernels' first versions, timed beside them
+           "flash_attention_v1": "v1/flash_attention.cu",
+           "ssd_scan_v1": "v1/ssd_scan.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -71,16 +71,16 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                          f"{chunk}")
     c = l // chunk
 
-    # layout for the kernel: one cell per (batch*head, chunk)
+    # layout for the kernel: one cell per (batch*head, chunk); B and C stay
+    # one copy per batch row, read by the h heads of that row (``heads``)
     xk = x.permute(0, 2, 1, 3).reshape(b * h, c, chunk, p).contiguous()
     dtk = dt.permute(0, 2, 1).reshape(b * h, c, chunk).contiguous()
-    Bk = B.reshape(b, 1, c, chunk, n).expand(b, h, c, chunk, n) \
-        .reshape(b * h, c, chunk, n).contiguous()
-    Ck = C.reshape(b, 1, c, chunk, n).expand(b, h, c, chunk, n) \
-        .reshape(b * h, c, chunk, n).contiguous()
+    Bk = B.reshape(b, c, chunk, n).contiguous()
+    Ck = C.reshape(b, c, chunk, n).contiguous()
     Ak = A[None, :].expand(b, h).reshape(b * h).contiguous()
 
-    y_diag, states, decay = _ssd.ssd_intra_chunk(xk, dtk, Ak, Bk, Ck)
+    y_diag, states, decay = _ssd.ssd_intra_chunk(xk, dtk, Ak, Bk, Ck,
+                                                 heads=h)
 
     # inter-chunk recurrence: the state carried into each chunk
     states = states.to(torch.bfloat16).float()
@@ -97,7 +97,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     state_decay = torch.exp(torch.cumsum(a, dim=-1))       # [bh, c, Q]
     dtype = torch.promote_types(torch.promote_types(Ck.dtype, prev.dtype),
                                 state_decay.dtype)
-    y_off = torch.einsum("bcqn,bcpn,bcq->bcqp", Ck.to(dtype),
-                         prev.to(dtype), state_decay.to(dtype))
-    y = (y_diag + y_off).reshape(b, h, l, p).permute(0, 2, 1, 3)
+    y_off = torch.einsum("bcqn,bhcpn,bhcq->bhcqp", Ck.to(dtype),
+                         prev.to(dtype).reshape(b, h, c, p, n),
+                         state_decay.to(dtype).reshape(b, h, c, chunk))
+    y = (y_diag.reshape(b, h, c, chunk, p) + y_off).reshape(b, h, l, p) \
+        .permute(0, 2, 1, 3)
     return y.to(x.dtype), carry.reshape(b, h, p, n)

@@ -15,7 +15,9 @@ and shapes before any launch:
   takes);
 - ``"cuda_core"`` (``csrc/ssd_scan.cu``): everything else (f32 inputs, the
   smoke configs' short chunks, odd ``P``, ``P > 256``), f32 products on
-  the CUDA cores; ``B`` and ``C`` are expanded to one copy per head first.
+  the CUDA cores, register-tiled for chunks up to 128 and heads up to 128
+  wide (row-blocked beyond); ``B`` and ``C`` read once per group by
+  index, as on the tensor-core route.
 
 It is a dispatch, not a fallback: a tensor the route's kernel does not
 take (misaligned, too large for shared memory) raises, and a failed build
@@ -49,7 +51,7 @@ def _lib(name: str) -> ctypes.CDLL:
     else:
         lib = _build.load("ssd_scan")
         fn, smem = lib.ssd_intra_chunk_fwd, lib.ssd_intra_chunk_smem
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6 + [
             ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int64] * 3
@@ -85,9 +87,9 @@ def launch_route(name: str, x, dt, A, B, C, y, st, dc, *,
                  heads: int = 1, round_scores: bool = False) -> None:
     """Launch route ``name``'s kernel on checked, contiguous CUDA tensors
     (``ssd_intra_chunk`` checks them; ``chip_smoke.py`` also times each
-    route through this).  The CUDA-core kernel takes B and C expanded to
-    one copy per head, and this expands them.  Counts nothing; raises if
-    the launch fails."""
+    route through this).  Both kernels read B and C by group (head ``bh``
+    reads group ``bh // heads``).  Counts nothing; raises if the launch
+    fails."""
     BH, c, Q, P = x.shape
     N = B.shape[-1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -98,16 +100,13 @@ def launch_route(name: str, x, dt, A, B, C, y, st, dc, *,
                 C.data_ptr(), y.data_ptr(), st.data_ptr(), dc.data_ptr(),
                 BH, heads, c, Q, P, N, int(round_scores), stream)
         else:
-            if heads > 1:
-                B = B.repeat_interleave(heads, dim=0)
-                C = C.repeat_interleave(heads, dim=0)
             flags = sum(f for f, t in zip(_BF16_FLAG, (x, dt, A, B, C))
                         if t.dtype == torch.bfloat16) \
                 + _ROUND_SCORES * bool(round_scores)
             err = _lib(name).ssd_intra_chunk_fwd(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), y.data_ptr(), st.data_ptr(), dc.data_ptr(),
-                BH, c, Q, P, N, flags, stream)
+                BH, heads, c, Q, P, N, flags, stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel ({name}) launch failed: "
                            f"cudaError {err}")

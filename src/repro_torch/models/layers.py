@@ -83,9 +83,14 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w's contraction or stack split (x cut to match); else both whole.
     DTensor's own choice for ``mm`` may replicate the product instead.
     Each operand's gradient is declared with the placements the local
-    product gives it."""
+    product gives it.  Operands of two dtypes are promoted first, as
+    ``jnp``'s ``@`` promotes them (bf16 activations against f32 weights,
+    ``Model(param_dtype=torch.float32)``, multiply in f32)."""
     from torch.distributed.tensor import DTensor
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        if x.dtype != w.dtype:
+            dtype = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dtype), w.to(dtype)
         return x @ w
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh, last, k_w, n_w = x.device_mesh, x.ndim - 1, w.ndim - 2, w.ndim - 1

@@ -27,6 +27,18 @@ without one).  Torch only, so they also run where JAX is not installed:
   from run to run; f32 inputs on the CUDA-core kernel; and a 2-layer
   mamba2 (d 512, P 64, N 128, chunk 128) with ``impl="pallas"`` against
   ``impl="naive"``;
+- the CUDA-core kernels at their tilings' edges: flash f32 at head dims
+  16, 48, 80, 128 and 256, lengths off the 64-row tile (1, 65, 130, 777,
+  1 500), GQA groups of 1, 4 and 9, the window, non-causal, ``q_offset``,
+  unaligned rows (no cp.async) and hd 25, to 2e-5 + 2e-5 |want|; SSD at
+  Q 8, 16, 48, 100, 128 (and 256: the row-blocked kernel), P 25, 50, 64,
+  100, N 16, 30 (no TMA) and 128, B and C by group for 1, 8 and 64
+  heads, bf16 inputs and ``round_scores``, to 1e-4 of each output's
+  largest entry (2^-7 rounded), the same bits from run to run; each launch
+  moving ``launches`` by one and ``tc_launches`` not at all; and
+  hymba-1.5b's width at 2 layers with f32 weights, ``impl="pallas"``
+  (two launches of each CUDA-core kernel, nothing else) against
+  ``impl="naive"``;
 - hymba-1.5b's width at 2 layers with ``impl="pallas"`` (the windowed
   tensor-core flash kernel and the tensor-core SSD kernel, P 50) against
   ``impl="naive"``, by loss, by whole logits (2^-5 of the largest, or
@@ -223,6 +235,52 @@ def test_flash_tensor_core_kernel_matches_plain_version(case, cuda):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+FLASH_F32_EDGES = [
+    # (BH, BHkv, Sq, Skv, hd, causal, window, q_offset): f32, CUDA cores
+    (4, 4, 1, 1, 16, True, 0, 0),               # one row, one key
+    (4, 1, 1, 1500, 128, True, 0, 1499),        # one row past 1 499 keys
+    (9, 1, 1500, 1500, 48, True, 0, 0),         # GQA 9, hd padded to 64
+    (2, 2, 1500, 1500, 80, False, 0, 0),        # non-causal, hd 80
+    (4, 4, 130, 130, 256, True, 0, 0),          # hd 256: 256 threads
+    (8, 2, 777, 777, 128, True, 300, 0),        # window, GQA 4
+    (2, 2, 100, 1500, 64, True, 200, 1400),     # q_offset and window
+    (3, 3, 65, 1, 16, False, 0, 0),             # one key, non-causal
+    (4, 4, 1, 1500, 32, False, 0, 0),           # one row, non-causal
+    (3, 3, 200, 200, 25, True, 0, 0),           # hd 25: no cp.async
+]
+
+
+@pytest.mark.parametrize("case", FLASH_F32_EDGES)
+def test_flash_cuda_core_kernel_at_its_tiling_edges(case, cuda):
+    BH, BHkv, Sq, Skv, hd, causal, window, q_offset = case
+    q, k, v = _qkv(BH, BHkv, Sq, Skv, hd, torch.float32, cuda, seed=2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert flash_attention.route(q.dtype, hd) == "cuda_core"
+    before = (flash_attention.launches, flash_attention.tc_launches)
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.tc_launches) \
+        == (before[0] + 1, before[1])
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v, **kw).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_cuda_core_kernel_takes_unaligned_rows(cuda):
+    """q 4 bytes into its storage: the tiles are filled by the threads,
+    not cp.async, with the same result."""
+    q, k, v = _qkv(2, 2, 300, 300, 128, torch.float32, cuda, seed=3)
+    flat = torch.empty(q.numel() + 1, device=cuda)
+    qm = flat[1:].view(q.shape).copy_(q)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention_bhsd(qm, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_ref(q, k, v).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_flash_f32_takes_cuda_core_kernel(cuda):
@@ -477,6 +535,45 @@ def test_ssd_f32_takes_cuda_core_kernel(cuda):
                                    atol=1e-4 * np.abs(w).max())
 
 
+SSD_CC_CASES = [
+    # (groups, heads, c, Q, P, N, dtype, round_scores): the CUDA-core route
+    (2, 1, 3, 8, 25, 16, torch.float32, False),
+    (1, 8, 2, 16, 50, 128, torch.float32, False),
+    (1, 64, 2, 48, 25, 16, torch.float32, False),
+    (2, 8, 2, 128, 50, 16, torch.float32, False),   # hymba's f32 cell
+    (1, 64, 2, 128, 64, 128, torch.float32, False),  # mamba2's, by group
+    (1, 8, 2, 128, 25, 128, torch.float32, True),
+    (1, 4, 2, 100, 100, 30, torch.float32, False),   # N % 4: no TMA
+    (2, 8, 2, 48, 50, 16, torch.bfloat16, True),     # Q < 64: not tc
+    (1, 8, 2, 16, 64, 128, torch.bfloat16, False),
+    (1, 2, 1, 256, 50, 16, torch.float32, False),    # the row-blocked kernel
+]
+
+
+@pytest.mark.parametrize("case", SSD_CC_CASES)
+def test_ssd_cuda_core_kernel_at_its_tiling_edges(case, cuda):
+    G, heads, c, Q, P, N, dtype, rs = case
+    x, dt, A, B, C = _ssd_inputs(G * heads, c, Q, P, N, dtype, cuda, seed=4)
+    args = (x, dt, A, B[:G].contiguous(), C[:G].contiguous())
+    assert ssd_scan.route(tuple(t.dtype for t in args), Q, P, N) \
+        == "cuda_core"
+    before = (ssd_scan.launches, ssd_scan.tc_launches)
+    runs = [ssd_scan.ssd_intra_chunk(*args, heads=heads, round_scores=rs)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.tc_launches) \
+        == (before[0] + 2, before[1])
+    want = ssd_intra_chunk_ref(x, dt, A, args[3].repeat_interleave(heads, 0),
+                               args[4].repeat_interleave(heads, 0),
+                               round_scores=rs)
+    tol = 2.0 ** -7 if rs else 1e-4
+    for g, again, w in zip(*runs, want):
+        assert torch.equal(g, again)          # the same bits, run to run
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max())
+
+
 def test_ssd_tensor_core_refuses_misaligned_inputs(cuda):
     """TMA needs 16-byte aligned, contiguous x, B, C: a view 2 bytes into
     its storage, or a non-contiguous one, raises (no other kernel takes it
@@ -517,6 +614,43 @@ def test_mamba_pallas_matches_naive_on_card(cuda):
         for impl in ("pallas", "naive")}
     np.testing.assert_allclose(lg["pallas"], lg["naive"], rtol=0,
                                atol=2.0 ** -5 * np.abs(lg["naive"]).max())
+
+
+def test_hymba_f32_pallas_matches_naive_on_card(cuda):
+    """hymba-1.5b's width at 2 layers with f32 weights: attention and the
+    SSM see f32 inputs, so ``impl="pallas"`` launches the CUDA-core flash
+    kernel twice (hd 64, the 2048-token window) and the CUDA-core SSD
+    kernel twice (P 50, N 16, B and C by group), nothing else.  Both sides
+    compute every product in f32: logits to 2^-8 of the largest, the loss
+    to rel 1e-4, as ``chip_smoke.py`` phase 34 holds them."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import Model
+    cfg = get_config("hymba-1.5b").scaled(n_layers=2, vocab=4096)
+    f32 = torch.float32
+    params = Model(cfg, param_dtype=f32).init(
+        torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 384))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    kmods = (flash_attention, ssd_scan, rmsnorm)
+    before = [m.launches for m in kmods] + [flash_attention.tc_launches,
+                                            ssd_scan.tc_launches]
+    with torch.no_grad():
+        got = tf.lm_logits(cfg, params, tf.lm_hidden(
+            cfg, params, toks, impl="pallas")).float()[..., :cfg.vocab]
+        torch.cuda.synchronize()
+        after = [m.launches for m in kmods] + [flash_attention.tc_launches,
+                                               ssd_scan.tc_launches]
+        want = tf.lm_logits(cfg, params, tf.lm_hidden(
+            cfg, params, toks, impl="naive")).float()[..., :cfg.vocab]
+        loss = [float(Model(cfg, impl=impl, param_dtype=f32).loss(
+            params, batch)) for impl in ("pallas", "naive")]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 0, 0, 0]
+    w = want.cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), w, rtol=0,
+                               atol=2.0 ** -8 * np.abs(w).max())
+    np.testing.assert_allclose(loss[0], loss[1], rtol=1e-4)
 
 
 # (batch row, position, feature) of the embedding entries that
