@@ -9,8 +9,10 @@ hymba-1.5b: 32; mixtral-8x22b at full width needs ``--layers 8`` to fit
 one 80 GB card; seeded weights on the card) and reports, from
 ``torch.profiler`` traces:
 
-- one ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"``: wall s,
+- one ``Model.loss`` at B 2 x S 4096 with ``impl="pallas"``: the median
+  wall s of three untraced forwards, then from a traced one its wall s,
   device-busy s (the sum of kernel durations), the device's idle share,
+  the CUDA kernels it launched,
   and device time grouped into this repo's kernels (the flash kernel, the
   tensor-core and the CUDA-core SSD kernels), matrix products, the MoE
   dispatch (sorts, ``searchsorted``, index scatters and gathers: the
@@ -193,13 +195,19 @@ def main(argv=None) -> int:
 
     with torch.no_grad():
         model.loss(params, batch)                    # warm-up
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            float(model.loss(params, batch))
+            walls.append(time.perf_counter() - t)
         wall_us, kernels, by_name = _trace(lambda: model.loss(params, batch))
     busy = sum(by_name.values())
     groups = collections.Counter()
     for n, us in by_name.items():
         groups[_group(n)] += us
     fwd = dict(arch=cfg.name, layers=cfg.n_layers, tokens=2 * 4096,
-               wall_s=wall_us / 1e6, tokens_per_s=2 * 4096e6 / wall_us,
+               untraced_wall_s=sorted(walls)[1], wall_s=wall_us / 1e6,
+               tokens_per_s=2 * 4096e6 / wall_us,
                device_busy_s=busy / 1e6,
                device_idle_share=1 - busy / wall_us if kernels else None,
                kernels=len(kernels),

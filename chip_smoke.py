@@ -1182,6 +1182,44 @@ def phase_flash(dev, flash_attention, ops, ref, kmods) -> tuple:
     return tuple(entries)
 
 
+def scores_rounding(ssd_scan, ref, plain, args, heads: int) -> dict:
+    """Phase 7's kernel-vs-plain y error with the scores rounded to bf16,
+    taken apart: again on the same inputs; with the plain version's prefix
+    sums from ``torch.cumsum``; and at its worst entry (b, c, q, p), the
+    scores of that row whose sum lies within 8 f32 steps of a bf16
+    rounding midpoint, each with the weight of one bf16 step of it in y
+    (the step times L[q, k] dt[k] x[k, p]).  One such weight equal to the
+    error says it is one score rounded the other way."""
+    import torch
+    kw = dict(heads=heads, round_scores=True)
+
+    def y_err():
+        d = (ssd_scan.ssd_intra_chunk(*args, **kw)[0]
+             - plain(*args, **kw)[0]).abs()
+        return float(d.max()), d
+
+    err, d = y_err()
+    with swapped(ref, "xla_cumsum", lambda a, dim: torch.cumsum(a, dim)):
+        err_torch = y_err()[0]
+    x, dt, A, B, C = args
+    bh, c, q, p = (int(i) for i in torch.unravel_index(d.argmax(), d.shape))
+    g = bh // heads
+    s = C[g, c, q].double() @ B[g, c, :q + 1].double().T        # [q + 1]
+    a = dt[bh, c].float() * A[bh].float()
+    acum = ref.xla_cumsum(a, -1)
+    term = (torch.exp(acum[q] - acum[:q + 1]) * dt[bh, c, :q + 1]
+            * x[bh, c, :q + 1, p].float()).double()
+    step = 2.0 ** (torch.floor(torch.log2(s.abs())) - 7)    # bf16 spacing
+    off = (s - (torch.floor(s / step) + 0.5) * step).abs() / (step * 2**-16)
+    near = torch.nonzero(off < 8).flatten().tolist()
+    return dict(err=err, err_again=y_err()[0], err_torch_cumsum=err_torch,
+                at=[bh, c, q, p],
+                near_ties=[dict(k=k, score=float(s[k]),
+                                f32_steps_from_midpoint=float(off[k]),
+                                one_step_in_y=float(step[k] * term[k].abs()))
+                           for k in near])
+
+
 def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
     """Returns the closing line's entries of the tensor-core kernel (x by
     TMA, and x by the threads) and of the CUDA-core kernel."""
@@ -1406,6 +1444,8 @@ def phase_ssd(dev, ssd_scan, ops, ref, kmods) -> tuple:
                power=nvidia_smi())
     rec["tflops"] = flops / rec["ms"] / 1e9
     rec["share_of_bound"] = bound_ms / rec["ms"]
+    rec["rounded_scores_err"] = scores_rounding(ssd_scan, ref, plain, args,
+                                                heads)
     say("ssd", json.dumps(rec))
 
     tc = dict(name="ssd_intra_chunk_tc", route="cuda",

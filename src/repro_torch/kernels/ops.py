@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -94,7 +95,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     # off-diagonal: carried-in state contribution; JAX promotes the mixed
     # dtypes of this einsum, torch needs them cast to the promoted type
     a = dtk * Ak[:, None, None]
-    state_decay = torch.exp(torch.cumsum(a, dim=-1))       # [bh, c, Q]
+    state_decay = torch.exp(_ref.xla_cumsum(a, -1))        # [bh, c, Q]
     dtype = torch.promote_types(torch.promote_types(Ck.dtype, prev.dtype),
                                 state_decay.dtype)
     y_off = torch.einsum("bcqn,bhcpn,bhcq->bhcqp", Ck.to(dtype),

@@ -2,12 +2,71 @@
 
 Counterparts of ``repro/kernels/ref.py``.  The wrappers take these for CPU
 tensors only; ``chip_smoke.py`` holds each kernel against them on the card.
+``xla_cumsum`` is the SSD's within-chunk prefix sum, in the reference's
+order of additions.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+
+CUMSUM_BLOCK = 16
+
+
+def _xla_scan(a: torch.Tensor) -> torch.Tensor:
+    """Prefix sums along the last dim, in XLA:CPU's order."""
+    L = a.shape[-1]
+    if L <= CUMSUM_BLOCK:
+        out = a.clone()
+        for j in range(1, L):
+            out[..., j].add_(out[..., j - 1])
+        return out
+    nb = -(-L // CUMSUM_BLOCK)
+    if nb * CUMSUM_BLOCK > L:
+        a = F.pad(a, (0, nb * CUMSUM_BLOCK - L))
+    inner = _xla_scan(a.reshape(*a.shape[:-1], nb, CUMSUM_BLOCK))
+    # each block plus the totals of the blocks before it
+    before = F.pad(_xla_scan(inner[..., -1])[..., :-1], (1, 0))
+    out = (inner + before[..., None]).reshape(*a.shape[:-1], -1)
+    return out[..., :L]
+
+
+class _XlaCumsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, dim):
+        ctx.dim = dim
+        return _xla_scan(a.movedim(dim, -1)).movedim(-1, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dim
+        return g.flip(d).cumsum(d).flip(d), None
+
+
+def xla_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim``, added in the order of the
+    reference's compiled ``jnp.cumsum``: bit for bit the same.
+
+    XLA:CPU (as jax 0.9.0 compiles ``cumsum``) rewrites the scan into
+    blocks of 16: it pads the axis at its end with zeros to a multiple of
+    16, adds strictly in sequence within each block, scans the block
+    totals by the same rule (a length of 16 or less is plain sequential),
+    and adds each block's exclusive prefix in one last add.  The SSD takes
+    ``exp`` of differences of these sums, which reach ~1e3 at a model's
+    decay rates, so one last-place difference in a sum becomes ~1e-5 of
+    the decay; ``torch.cumsum`` accumulates a float sum in double on the
+    CPU and in CUB's order on CUDA.  So the adds are written out here, as
+    f32 adds in place, one path on every device.
+
+    The gradient is ``torch.cumsum``'s, the reversed scan of the incoming
+    gradient (in double on the CPU): three kernels on the card, where the
+    reference's own order (each suffix of a block summed left to right)
+    takes ~26, and no check holds the gradient's order; it is within
+    1e-6 of JAX's (``tests/test_torch_ssm_stages.py``).
+    """
+    return _XlaCumsum.apply(a, dim)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -54,7 +113,7 @@ def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """
     x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
     a = dt * A[:, None, None]                        # [BH, c, Q]
-    acum = torch.cumsum(a, dim=-1)
+    acum = xla_cumsum(a, -1)
     diff = acum[..., :, None] - acum[..., None, :]
     Q = x.shape[2]
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))

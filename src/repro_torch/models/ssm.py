@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ssd_scan
+from repro_torch.kernels.ref import xla_cumsum
 from repro_torch.models.layers import dot, split_last
 from repro_torch.sharding import specs as sh
 
@@ -47,12 +48,13 @@ def ssm_shapes(cfg: ModelConfig) -> dict:
             "w_out": (di, d), "norm_w": (di,)}
 
 
-def _segsum(a: torch.Tensor) -> torch.Tensor:
-    """Stable segment-sum: out[..., i, j] = sum_{j < m <= i} a[..., m]."""
-    T = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+def _segsum(cs: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum from the prefix sums ``cs = xla_cumsum(a, -1)``:
+    out[..., i, j] = sum_{j < m <= i} a[..., m], the reference's
+    ``_segsum(a)``."""
+    T = cs.shape[-1]
     out = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=a.device))
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=cs.device))
     return torch.where(mask, out, -torch.inf)
 
 
@@ -63,11 +65,11 @@ def _promoted(*ts) -> torch.dtype:
     return dtype
 
 
-def _intra_reference(xb, dtb, A, Bb, Cb, a):
-    """The reference's intra-chunk block in torch: (y_diag [b,c,q,h,p],
-    states [b,c,h,p,n] before their bf16 rounding, chunk_decay [b,c,h])."""
-    a_cum = torch.cumsum(a, dim=2)
-    Lmat = torch.exp(_segsum(a.permute(0, 1, 3, 2)))       # [b,c,h,q,q]
+def _intra_reference(xb, dtb, A, Bb, Cb, a_cum):
+    """The reference's intra-chunk block in torch, from the prefix sums
+    ``a_cum = xla_cumsum(dt A, 2)``: (y_diag [b,c,q,h,p], states
+    [b,c,h,p,n] before their bf16 rounding, chunk_decay [b,c,h])."""
+    Lmat = torch.exp(_segsum(a_cum.permute(0, 1, 3, 2)))   # [b,c,h,q,q]
     scores = torch.einsum("bcqn,bckn->bcqk", Cb.float(), Bb.float()) \
         .to(_promoted(Cb, Bb))                              # [b,c,q,k]
     t = _promoted(Lmat, scores, dtb, xb)
@@ -118,12 +120,12 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, *, impl: str = "naive"):
     Cb = C.reshape(b, c, chunk, n)
 
     a = dtb * A[None, None, None, :]                       # [b,c,q,h]
-    a_cum = torch.cumsum(a, dim=2)
+    a_cum = xla_cumsum(a, 2)
     if impl == "pallas":
         y_diag, states, chunk_decay = _intra_kernel(xb, dtb, A, Bb, Cb)
     else:
         y_diag, states, chunk_decay = _intra_reference(xb, dtb, A, Bb, Cb,
-                                                       a)
+                                                       a_cum)
     # chunk states stored in bf16, the recurrence accumulates in f32
     states = states.to(torch.bfloat16)
     carry = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
@@ -223,17 +225,21 @@ def _project(x, p, cfg: ModelConfig):
     return xin.reshape(Bsz, S, H, P), z, Bm, Cm, dt, A
 
 
-def _epilogue(y, xh, z, x, p):
-    """D skip, the gate and the gated RMSNorm, then the output
-    projection."""
+def _gated_norm(y, xh, z, x, p):
+    """D skip, the gate and the RMSNorm's normalization, in x's dtype."""
     Bsz, S, H, P = xh.shape
     y = y + xh.float() * p["d_skip"][None, None, :, None]
     y = y.reshape(Bsz, S, H * P).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
     yf = y.float()
     ms = (yf * yf).mean(-1, keepdim=True)
-    y = (yf * torch.rsqrt(ms + 1e-6)).to(x.dtype) * p["norm_w"]
-    return dot(y, p["w_out"])
+    return (yf * torch.rsqrt(ms + 1e-6)).to(x.dtype)
+
+
+def _epilogue(y, xh, z, x, p):
+    """The gated RMSNorm (``_gated_norm`` times its weight), then the
+    output projection."""
+    return dot(_gated_norm(y, xh, z, x, p) * p["norm_w"], p["w_out"])
 
 
 def ssm_forward(x, p, cfg: ModelConfig, *, state=None,

@@ -6,21 +6,25 @@ Tolerances, with their reasons:
 
 - ``ssd_chunked`` in f32: its intra-chunk block (``y_diag`` and the chunk
   states before their bf16 rounding) against the reference's einsums at
-  rel/abs 2e-5 (same formula, other summation order, other ``exp``); the
-  whole output at 2e-4, the bound of ``tests/test_kernels_ssd.py``: both
-  packages round the chunk states to bf16, so a last-place f32 difference
-  can flip one rounding (measured: 1 of 4096 states at (1, 64, 2, 16, 32),
-  moving y by 2.5e-5);
+  rel/abs 2e-6 (same formula and, through ``ref.xla_cumsum``, the same
+  prefix sums; other einsum summation order, other ``exp``: measured
+  2.2e-7); the whole output at 2e-6 as well: both packages round the
+  chunk states to bf16, and with the prefix sums added in the reference's
+  order no rounding flips here (measured 2.4e-7; 6e-5 with
+  ``torch.cumsum``'s prefix sums, under which state roundings flipped);
 - ``ssd_chunked`` with bf16 x, B, C: 2^-7 of the largest entry (one bf16
   rounding of ``scores`` flipped either way);
 - the ``impl="pallas"`` form (the intra-chunk block from
   ``ssd_scan.ssd_intra_chunk``, whose CPU version is the plain one) in
   f32 against JAX's ``ssd_chunked`` and its kernel-backed ``ops.ssd``
-  (interpret mode): 2e-4, the bound of ``tests/test_kernels_ssd.py``;
+  (interpret mode): 2e-6 (measured 2.4e-7; 6e-5 with ``torch.cumsum``);
 - ``ssm_forward`` prefill against JAX (f32 weights and inputs): rel/abs
   2e-5 of the largest entry; decode step by step against prefill and the
   final state against ``ssm_reference``: 2e-3, the bound of
   ``tests/test_archs_smoke.py``.
+
+``tests/test_torch_ssm_stages.py`` holds the layer stage by stage at the
+widths of hymba-1.5b and mamba2-1.3b.
 """
 import numpy as np
 import pytest
@@ -39,6 +43,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import carry  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels.ref import xla_cumsum  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
@@ -95,18 +100,18 @@ def test_ssd_chunked_matches_jax_f32(shape, chunk, impl):
     assert y_t.dtype == f32 and st_t.dtype == f32
     assert tuple(y_t.shape) == y_j.shape and tuple(st_t.shape) == st_j.shape
     for got, want in ((y_t, y_j), (st_t, st_j)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
-                                   atol=2e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6,
+                                   atol=2e-6)
     # the intra-chunk block itself, before the states' bf16 rounding
     b, l, h, p = arrs[0].shape
     c, n = l // chunk, arrs[3].shape[-1]
     xb, dtb = ta[0].reshape(b, c, chunk, h, p), ta[1].reshape(b, c, chunk, h)
     y_d, st_d, _ = ssm._intra_reference(
         xb, dtb, ta[2], ta[3].reshape(b, c, chunk, n),
-        ta[4].reshape(b, c, chunk, n), dtb * ta[2])
+        ta[4].reshape(b, c, chunk, n), xla_cumsum(dtb * ta[2], 2))
     for got, want in zip((y_d, st_d), _jax_intra(*ja, chunk)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
-                                   atol=2e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6,
+                                   atol=2e-6)
 
 
 @pytest.mark.parametrize("impl", ["naive", "pallas"])
@@ -135,10 +140,10 @@ def test_pallas_form_matches_jax_ssd_and_kernel(shape, chunk):
     assert (ssd_scan.launches, ssd_scan.tc_launches) == before  # CPU
     for y_w, st_w in (jssm.ssd_chunked(*ja, chunk),
                       jops.ssd(*ja, chunk=chunk, interpret=True)):
-        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_w), rtol=2e-4,
-                                   atol=2e-4)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_w), rtol=2e-6,
+                                   atol=2e-6)
         np.testing.assert_allclose(st_t.numpy(), np.asarray(st_w),
-                                   rtol=2e-4, atol=2e-4)
+                                   rtol=2e-6, atol=2e-6)
 
 
 def test_round_scores_mirrors_the_reference_scores():
@@ -155,7 +160,8 @@ def test_round_scores_mirrors_the_reference_scores():
     tA = torch.from_numpy(A)
     tB, tC = (torch.from_numpy(a).to(bf16).reshape(b, c, q, n)
               for a in (B, C))
-    y_r, st_r, dc_r = ssm._intra_reference(tx, tdt, tA, tB, tC, tdt * tA)
+    y_r, st_r, dc_r = ssm._intra_reference(tx, tdt, tA, tB, tC,
+                                           xla_cumsum(tdt * tA, 2))
     y_k, st_k, dc_k = ssm._intra_kernel(tx, tdt, tA, tB, tC)
     for got, want in ((y_k, y_r), (st_k, st_r), (dc_k, dc_r)):
         _close(got.numpy(), want.numpy(), 1e-4)
